@@ -11,8 +11,12 @@ dots (`params["l0"]["attn"]["wq"]` <-> `"l0.attn.wq"`), and
 interop/from_jax.py copies a reference tree in by name.
 
 The reference's pure `apply(params, state, x, ...)` is the module call
-`module(x, ...)`; `training=` is the torch `train()`/`eval()` mode.
-`torch.nn.Module.apply(fn)` keeps its torch meaning.
+`module(x, ...)`; its `training=` flag is the torch `train()`/`eval()`
+mode (`module.training`), which the trainer sets. `torch.nn.Module.
+apply(fn)` keeps its torch meaning. A params tree is the flat dict
+`{dotted path: tensor}` of `named_parameters()`; `freeze()` marks a
+subtree, and `trainable_mask` says per path whether the trainer may
+move it.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ class Module(nn.Module):
     def __init__(self, name: Optional[str] = None):
         super().__init__()
         self.name = name or type(self).__name__
+        self._frozen = False
 
     def param_specs(self) -> Dict[str, ParamSpec]:
         return {}
@@ -61,6 +66,30 @@ class Module(nn.Module):
         int8 weights of a quantized layer) cannot carry gradients."""
         self.register_parameter(name, nn.Parameter(
             value, requires_grad=value.is_floating_point()))
+
+    def freeze(self) -> "Module":
+        """Mark this subtree non-trainable: the trainer restores its
+        parameters after every update, so neither gradients, weight
+        decay nor momentum move them."""
+        self._frozen = True
+        return self
+
+    def unfreeze(self) -> "Module":
+        for mod in self.modules():
+            if isinstance(mod, Module):
+                mod._frozen = False
+        return self
+
+    def trainable_mask(self, params: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Dict[str, bool]:
+        """{path: bool} over `params` (default: every parameter): False
+        where the parameter lies under a frozen module."""
+        frozen = [name for name, mod in self.named_modules()
+                  if getattr(mod, "_frozen", False)]
+        keys = params.keys() if params is not None else \
+            (k for k, _ in self.named_parameters())
+        return {k: not any(f == "" or k.startswith(f + ".") for f in frozen)
+                for k in keys}
 
     def init(self, generator: torch.Generator, device=None,
              dtype: Optional[torch.dtype] = None) -> "Module":
@@ -77,3 +106,16 @@ class Module(nn.Module):
                                   fan_in=spec.fan_in, fan_out=spec.fan_out)
                 mod.set_param(pname, value.to(dev))
         return self
+
+
+class Criterion:
+    """Loss contract: ``loss = criterion.forward(input, target)``, a
+    scalar tensor; gradients come from autograd."""
+
+    size_average: bool = True
+
+    def forward(self, input, target):
+        raise NotImplementedError
+
+    def __call__(self, input, target):
+        return self.forward(input, target)

@@ -13,6 +13,11 @@ is transposed. A QuantizedLinear's leaves (`weight_q`, `weight_scale`,
 `bias`) go through `set_quantized`, which also makes the kernel's
 transposed copy. No ported module keeps state yet, so a state tree must
 hold no leaves.
+
+`slots_from_jax` carries an optimizer's slot trees the same way
+(`{"m": tree, "v": tree}` for Adam, `{"velocity": tree}` for SGD with
+momentum) into the `{slot name: {dotted path: tensor}}` dicts the
+port's OptimMethods and trainer take.
 """
 
 from __future__ import annotations
@@ -44,6 +49,30 @@ def load_jax_tree(module: Module, params: Dict[str, Any],
                          "tree holds leaves")
     _load(module, params, dev, "")
     return module
+
+
+def tree_to_paths(tree: Dict[str, Any], device=None,
+                  prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A nested reference tree with numpy leaves as `{dotted path:
+    tensor}` on `device` (default `cuda`), the keys of
+    `named_parameters()`."""
+    dev = resolve_device(device)
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(tree_to_paths(v, dev, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = _tensor(v, dev)
+    return out
+
+
+def slots_from_jax(slots: Dict[str, Any], device=None
+                   ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An optimizer's slot trees (numpy leaves) as `{slot name: {dotted
+    path: tensor}}` on `device`. The reference's slot-less `()` becomes
+    `{}`."""
+    return {name: tree_to_paths(tree, device) for name, tree in
+            (slots or {}).items()}
 
 
 def _has_leaf(tree) -> bool:

@@ -3,9 +3,13 @@
 `flash_attention` launches the hand-written CUDA kernel
 `csrc/flash_attention.cu` for CUDA tensors and takes the plain dense
 version `flash_attention_plain` for CPU tensors; on any other device it
-raises. The kernel is forward-only, like the reference's Pallas kernel
-(whose backward recomputed through blockwise attention); the port has
-no backward yet.
+raises. It is differentiable: a `torch.autograd.Function` whose forward
+is that call and whose backward recomputes the attention through
+`nn.attention.blockwise_attention` under autograd and returns its
+vector-Jacobian product, as the reference's custom_vjp does
+(bigdl_tpu/kernels/flash_attention.py `_fwd`/`_bwd`). That backward is
+plain jnp in the reference, not a Pallas kernel, so it is plain PyTorch
+here too: the kernel runs forward only.
 
 Semantics shared by both versions: q (B, H, Tq, d), k/v (B, H, Tk, d),
 fp32; default scale 1/sqrt(d); causal masking is bottom-right aligned
@@ -23,10 +27,13 @@ from typing import Optional
 import torch
 
 from bigdl_tpu_torch.kernels import _native
-from bigdl_tpu_torch.nn.attention import causal_mask
+from bigdl_tpu_torch.nn.attention import blockwise_attention, causal_mask
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
+# the reference's block_k when no autotune table is consulted; the
+# backward's blockwise recompute takes the largest divisor of Tk <= it
+BLOCK_K = 128
 
 
 def flash_attention_plain(q, k, v, causal: bool = False,
@@ -57,9 +64,17 @@ def _lib():
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None):
-    """Fused attention: q (B, H, Tq, d), k/v (B, H, Tk, d) -> (B, H, Tq, d).
+    """Fused attention: q (B, H, Tq, d), k/v (B, H, Tk, d) -> (B, H, Tq, d),
+    differentiable in q, k and v (recompute backward, see the module
+    docstring).
 
     CUDA tensors must be contiguous fp32 with d <= 128."""
+    return _FlashAttentionFn.apply(q, k, v, causal, scale)
+
+
+def _forward(q, k, v, causal, scale):
+    """The forward alone: the kernel for CUDA tensors, the plain version
+    for CPU tensors. Counts a launch only where it launches."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"flash_attention wants 4-D (B, H, T, d) tensors, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -94,6 +109,40 @@ def flash_attention(q, k, v, causal: bool = False,
     _native.check(rc, "flash_attention")
     flash_attention.launches.add()
     return out
+
+
+def _recompute_vjp(q, k, v, g, causal, scale):
+    """(dq, dk, dv) of blockwise attention at (q, k, v) against the
+    output cotangent `g`. The blockwise form is dense attention for any
+    block size dividing Tk; ragged lengths take the largest such divisor
+    not above BLOCK_K, the reference's rule."""
+    tk = k.shape[2]
+    bs = min(BLOCK_K, tk)
+    while tk % bs:
+        bs -= 1
+    with torch.enable_grad():
+        qd, kd, vd = (x.detach().requires_grad_() for x in (q, k, v))
+        out = blockwise_attention(qd, kd, vd, block_size=bs, causal=causal,
+                                  scale=scale)
+        return torch.autograd.grad(out, (qd, kd, vd), g)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """Forward through the kernel (or its plain version on the CPU);
+    backward by the blockwise recompute. Saves q, k, v, the residuals
+    of the reference's `_fwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.causal, ctx.scale = causal, scale
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _recompute_vjp(q, k, v, g, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 flash_attention.launches = _native.LaunchCounter()

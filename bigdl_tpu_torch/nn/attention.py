@@ -1,8 +1,11 @@
 """Attention (counterpart of bigdl_tpu/nn/attention.py): the dense
-softmax attention, the bottom-right causal mask, rotary embeddings and
+softmax attention, the online-softmax blockwise attention (the
+recompute that flash attention's backward differentiates through), the
+bottom-right causal and padding masks, rotary embeddings and
 MultiHeadAttention with GQA, RoPE and a callable `attn_impl` (the seam
-kernels/flash_attention.FlashAttention plugs into). The blockwise path
-and the cached/slot/paged decode helpers are not ported yet.
+kernels/flash_attention.FlashAttention plugs into). MultiHeadAttention's
+'blockwise' attn_impl and the cached/slot/paged decode helpers are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +41,59 @@ def dot_product_attention(q, k, v, mask=None, *, scale: Optional[float] = None):
     return torch.matmul(weights, v)
 
 
+def online_softmax_step(q, kb, vb, o, m, l, scale, pos_mask=None):
+    """One online-softmax accumulation step over a KV block. Carries
+    (o, m, l) in fp32; `pos_mask` broadcastable to the (..., Tq,
+    Tk_block) logits, True = attend."""
+    s = torch.matmul(q, kb.transpose(-1, -2)).float() * scale
+    if pos_mask is not None:
+        s = torch.where(pos_mask, s, torch.full((), NEG_INF, device=s.device))
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(-1)
+    o_new = o * alpha[..., None] + torch.matmul(p.to(vb.dtype), vb).float()
+    return o_new, m_new, l_new
+
+
+def online_softmax_finish(o, l, dtype):
+    """Normalize the accumulated output; fully-masked rows (l == 0)
+    yield 0."""
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
+
+
+def blockwise_attention(q, k, v, *, block_size: int, causal: bool = False,
+                        scale: Optional[float] = None,
+                        q_offset: Optional[int] = None):
+    """Attention as a loop over KV blocks with an online softmax (max
+    and sum carried in fp32): peak memory O(Tq * block) instead of
+    O(Tq * Tk), numerically dense attention up to summation order.
+
+    q: (B, H, Tq, d), k/v: (B, H, Tk, d); Tk must divide by block_size.
+    `q_offset` positions the queries within the key sequence for causal
+    masking (default Tk - Tq: the queries are the LAST rows)."""
+    B, H, Tq, d = q.shape
+    Tk = k.shape[2]
+    if Tk % block_size != 0:
+        raise ValueError(f"Tk={Tk} must divide by block_size={block_size}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q_offset is None:
+        q_offset = Tk - Tq
+    q_pos = q_offset + torch.arange(Tq, device=q.device)
+    o = torch.zeros((B, H, Tq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Tq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Tq), dtype=torch.float32, device=q.device)
+    for start in range(0, Tk, block_size):
+        pos_mask = None
+        if causal:
+            k_pos = start + torch.arange(block_size, device=q.device)
+            pos_mask = q_pos[:, None] >= k_pos[None, :]
+        o, m, l = online_softmax_step(
+            q, k[:, :, start:start + block_size],
+            v[:, :, start:start + block_size], o, m, l, scale, pos_mask)
+    return online_softmax_finish(o, l, q.dtype)
+
+
 def causal_mask(tq: int, tk: Optional[int] = None, device=None):
     """Lower-triangular (1, 1, Tq, Tk) bool mask. With tk > tq the
     queries sit at the END of the key sequence (bottom-right aligned,
@@ -46,6 +102,12 @@ def causal_mask(tq: int, tk: Optional[int] = None, device=None):
     q_pos = (tk - tq) + torch.arange(tq, device=device)
     k_pos = torch.arange(tk, device=device)
     return (q_pos[:, None] >= k_pos[None, :])[None, None]
+
+
+def padding_mask(lengths, t: int):
+    """(B, 1, 1, T) bool mask from per-row valid lengths."""
+    pos = torch.arange(t, device=lengths.device)
+    return (pos[None, :] < lengths[:, None])[:, None, None, :]
 
 
 def rotary_embedding(x, theta: float = 10000.0, positions=None):

@@ -1,6 +1,7 @@
 """Typed env-var knobs (counterpart of bigdl_tpu/utils/config.py), under
 the same `BIGDL_TPU_*` names so one environment configures both
-packages. Only the knobs the port reads so far are declared."""
+packages. Only the knobs the port reads so far are declared (serving,
+and the local trainer's)."""
 
 from __future__ import annotations
 
@@ -59,6 +60,32 @@ _register("SERVE_MODEL_QUEUE_ROWS", "", str,
           "SERVE_MAX_QUEUE_ROWS; a bare int applies to every model; "
           "'m1=512,m2=256' sets named models. register(max_queue_rows=) "
           "still wins (serve/engine.py)")
+_register("SEED", 1, int,
+          "Global default RNG seed for trainers: the Optimizer draws a "
+          "model whose parameters do not exist yet from it (optim/local.py)")
+_register("LOG_THROUGHPUT_EVERY", 20, int,
+          "Iterations between trainer log lines; the losses of those "
+          "iterations are fetched from the device together then")
+_register("STEPS_PER_CALL", 1, int,
+          "Optimizer steps per dispatch. Only 1 is ported: the K-step "
+          "scan is an XLA dispatch device whose counterpart (CUDA graphs) "
+          "is a ROADMAP item; K > 1 raises NotImplementedError")
+_register("ACCUM_STEPS", 1, int,
+          "Gradient accumulation: microbatches per optimizer step. M>1 "
+          "splits each batch into M microbatches, averages their "
+          "gradients and applies ONE update (optim/local.py)")
+_register("MAX_NONFINITE", 3, int,
+          "Abort training (NonFiniteLossError) after this many "
+          "CONSECUTIVE non-finite training steps; 0 disables the abort "
+          "(optim/local.py)")
+_register("FUSED_UPDATE", "", str,
+          "Run the optimizer update (Adam/AdamW/SGD) through the fused "
+          "update (kernels/fused_update.py). '' / 0 (default) = off: the "
+          "OptimMethod.update path stays the oracle. 1 = auto layout: "
+          "the one-launch CUDA kernel over the leaf list for CUDA "
+          "tensors, per-leaf fused math for CPU tensors. 'flat' / 'leaf' "
+          "force a layout. Unsupported methods log once and keep "
+          "OptimMethod.update")
 
 
 def get(name: str):

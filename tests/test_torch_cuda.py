@@ -10,16 +10,22 @@ import numpy as np
 import pytest
 import torch
 
+from bigdl_tpu_torch.kernels import fused_update as fu
 from bigdl_tpu_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 from bigdl_tpu_torch.kernels.quantized_matmul import (int8_matmul,
                                                       int8_matmul_plain)
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.quantized import QuantizedLinear
+from bigdl_tpu_torch.optim import method as pm
 
 # fp32 attention: online vs one-pass softmax sum in different orders;
 # the reference's own flash-vs-dense tolerance (tests/test_kernels.py)
 FLASH_TOL = 2e-5
+
+# gradients through the recompute backward against autograd through the
+# dense plain version: both fp32, summed in other orders
+GRAD_TOL = 1e-4
 
 pytestmark = pytest.mark.cuda
 
@@ -100,3 +106,75 @@ def test_quantized_linear_runs_the_kernel(cuda):
     # the division x / sx and the bias add may differ by an ulp
     np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,causal", [
+    (2, 3, 256, 256, True), (2, 2, 37, 91, False), (1, 2, 50, 77, True)])
+def test_flash_function_gradients_match_plain_autograd(cuda, b, h, tq, tk,
+                                                       causal):
+    q = _rand(cuda, b, h, tq, 64, seed=4).requires_grad_()
+    k = _rand(cuda, b, h, tk, 64, seed=5).requires_grad_()
+    v = _rand(cuda, b, h, tk, 64, seed=6).requires_grad_()
+    g = _rand(cuda, b, h, tq, 64, seed=7)
+    n0 = flash_attention.launches.value
+    got = torch.autograd.grad(flash_attention(q, k, v, causal=causal), (q, k, v),
+                              g)
+    assert flash_attention.launches.value == n0 + 1
+    want = torch.autograd.grad(flash_attention_plain(q, k, v, causal=causal),
+                               (q, k, v), g)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+FUSED_METHODS = [pm.Adam(1e-3), pm.Adam(1e-3, weight_decay=0.01),
+                 pm.AdamW(1e-3, weight_decay=0.05), pm.SGD(0.1),
+                 pm.SGD(0.1, momentum=0.5, dampening=0.1, weight_decay=0.02),
+                 pm.SGD(0.1, momentum=0.9, nesterov=True)]
+
+
+@pytest.mark.parametrize("method", FUSED_METHODS, ids=[
+    "adam", "adam-wd", "adamw", "sgd", "sgd-mom-damp-wd", "sgd-nesterov"])
+def test_fused_update_kernel_bitwise_equals_plain(cuda, method):
+    """K1, one launch over leaves of odd sizes (and one 2-D leaf, one
+    empty), from a non-zero state, bit for bit against the plain version
+    and against method.update."""
+    kind, hyper = fu.describe(method)
+    names = fu.slot_names(kind, hyper)
+    sizes = [(1,), (7,), (4097,), (33, 7), (0,), (70001,), (4096,)]
+    params = {f"p{i}": _rand(cuda, *s, seed=i) for i, s in enumerate(sizes)}
+    grads = {k: _rand(cuda, *p.shape, seed=50 + i)
+             for i, (k, p) in enumerate(params.items())}
+    slots = {nm: {k: _rand(cuda, *p.shape, seed=90 + i).abs()
+                  for i, (k, p) in enumerate(params.items())}
+             for nm in names}
+    want_p, want_s = method.update(params, grads, slots, 5e-3, 7)
+    bc1, bc2 = fu._bias_corrections(kind, hyper, 7)
+    keys = list(params)
+    plain_p, plain_s = fu.fused_update_plain(
+        kind, hyper, [params[k] for k in keys], [grads[k] for k in keys],
+        [[slots[nm][k] for k in keys] for nm in names], 5e-3, bc1, bc2)
+    got_p = {k: p.clone() for k, p in params.items()}
+    got_s = {nm: {k: s.clone() for k, s in sl.items()}
+             for nm, sl in slots.items()}
+    n0 = fu.fused_update.launches.value
+    fu.make_update_fn(method, layout="flat")(got_p, grads, got_s, 5e-3, 7)
+    torch.cuda.synchronize()
+    assert fu.fused_update.launches.value == n0 + 1
+    for j, k in enumerate(keys):
+        assert torch.equal(got_p[k], plain_p[j]), k
+        assert torch.equal(got_p[k], want_p[k]), k
+        for i, nm in enumerate(names):
+            assert torch.equal(got_s[nm][k], plain_s[i][j]), (nm, k)
+            assert torch.equal(got_s[nm][k], want_s[nm][k]), (nm, k)
+
+
+def test_fused_update_kernel_refuses_what_it_cannot_take(cuda):
+    kind, hyper = fu.describe(pm.SGD(0.1))
+    p = _rand(cuda, 8)
+    with pytest.raises(TypeError, match="fp32"):
+        fu.fused_update(kind, hyper, [p.half()], [p.half()], [], 0.1, 1., 1.)
+    with pytest.raises(ValueError, match="contiguous"):
+        q = _rand(cuda, 4, 4).t()
+        fu.fused_update(kind, hyper, [q], [q], [], 0.1, 1., 1.)
+    with pytest.raises(ValueError, match="shapes"):
+        fu.fused_update(kind, hyper, [p], [p[:4]], [], 0.1, 1., 1.)
