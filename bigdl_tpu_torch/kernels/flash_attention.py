@@ -4,12 +4,15 @@
 `csrc/flash_attention.cu` for CUDA tensors and takes the plain dense
 version `flash_attention_plain` for CPU tensors; on any other device it
 raises. It is differentiable: a `torch.autograd.Function` whose forward
-is that call and whose backward recomputes the attention through
-`nn.attention.blockwise_attention` under autograd and returns its
-vector-Jacobian product, as the reference's custom_vjp does
-(bigdl_tpu/kernels/flash_attention.py `_fwd`/`_bwd`). That backward is
-plain jnp in the reference, not a Pallas kernel, so it is plain PyTorch
-here too: the kernel runs forward only.
+is that call and whose backward recomputes the attention under autograd
+and returns its vector-Jacobian product, as the reference's custom_vjp
+does (bigdl_tpu/kernels/flash_attention.py `_fwd`/`_bwd`). That backward
+is plain jnp in the reference, not a Pallas kernel, so it is plain
+PyTorch here too: the kernel runs forward only. The reference recomputes
+through blockwise attention, which under jit keeps O(Tq * block) memory;
+eager autograd would keep every block's intermediates, so the port
+recomputes through the dense `flash_attention_plain` (the same function;
+only the summation order differs).
 
 Semantics shared by both versions: q (B, H, Tq, d), k/v (B, H, Tk, d),
 fp32; default scale 1/sqrt(d); causal masking is bottom-right aligned
@@ -27,13 +30,10 @@ from typing import Optional
 import torch
 
 from bigdl_tpu_torch.kernels import _native
-from bigdl_tpu_torch.nn.attention import blockwise_attention, causal_mask
+from bigdl_tpu_torch.nn.attention import causal_mask
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-# the reference's block_k when no autotune table is consulted; the
-# backward's blockwise recompute takes the largest divisor of Tk <= it
-BLOCK_K = 128
 
 
 def flash_attention_plain(q, k, v, causal: bool = False,
@@ -112,24 +112,17 @@ def _forward(q, k, v, causal, scale):
 
 
 def _recompute_vjp(q, k, v, g, causal, scale):
-    """(dq, dk, dv) of blockwise attention at (q, k, v) against the
-    output cotangent `g`. The blockwise form is dense attention for any
-    block size dividing Tk; ragged lengths take the largest such divisor
-    not above BLOCK_K, the reference's rule."""
-    tk = k.shape[2]
-    bs = min(BLOCK_K, tk)
-    while tk % bs:
-        bs -= 1
+    """(dq, dk, dv) of attention at (q, k, v) against the output
+    cotangent `g`: autograd through the dense plain version."""
     with torch.enable_grad():
         qd, kd, vd = (x.detach().requires_grad_() for x in (q, k, v))
-        out = blockwise_attention(qd, kd, vd, block_size=bs, causal=causal,
-                                  scale=scale)
+        out = flash_attention_plain(qd, kd, vd, causal, scale)
         return torch.autograd.grad(out, (qd, kd, vd), g)
 
 
 class _FlashAttentionFn(torch.autograd.Function):
     """Forward through the kernel (or its plain version on the CPU);
-    backward by the blockwise recompute. Saves q, k, v, the residuals
+    backward by the dense recompute. Saves q, k, v, the residuals
     of the reference's `_fwd`."""
 
     @staticmethod

@@ -13,12 +13,10 @@ pointers: unlike the reference's flat layout it never concatenates the
 leaves (the reference records that its concat/split cost more than it
 saved).
 
-Layouts of `make_update_fn`:
-  * ``flat`` — every float leaf through `fused_update` in one call (the
-    kernel on the card; its plain version for CPU tensors);
-  * ``leaf`` — `_math` per leaf, returning new tensors;
-  * ``auto`` — ``flat`` for CUDA tensors, ``leaf`` for CPU tensors (the
-    reference's "flat+Pallas on the accelerator, leaf elsewhere").
+`make_update_fn` hands every float leaf to `fused_update` in one call,
+so the device of the tensors alone picks the kernel or the plain
+version. The reference's flat/leaf layouts existed to avoid a concat on
+the TPU; the kernel never concatenates, so there is one path.
 
 Semantics: bit-identical to `method.update` (same elementwise
 expressions in the same order, the same fp32 scalars; see
@@ -66,16 +64,13 @@ def supports(method) -> bool:
     return describe(method) is not None
 
 
-def configured_mode() -> Optional[str]:
-    """BIGDL_TPU_FUSED_UPDATE, normalized: None (off — the default),
-    'auto' (1/true/on), or a forced 'flat' / 'leaf' layout."""
+def enabled() -> bool:
+    """BIGDL_TPU_FUSED_UPDATE: off for "", 0, false, off or no (the
+    default is ""), on for anything else. The reference's 'flat' and
+    'leaf' layout values turn it on like 1."""
     from bigdl_tpu_torch.utils import config
     raw = str(config.get("FUSED_UPDATE")).strip().lower()
-    if raw in ("", "0", "false", "off", "no"):
-        return None
-    if raw in ("flat", "leaf"):
-        return raw
-    return "auto"
+    return raw not in ("", "0", "false", "off", "no")
 
 
 def slot_names(kind: str, hyper: Dict) -> Tuple[str, ...]:
@@ -97,9 +92,9 @@ def _bias_corrections(kind: str, hyper: Dict, step: int) -> Tuple[float, float]:
 
 def _math(kind: str, hyper: Dict, p, g, slots, lr, bc1: float, bc2: float):
     """One optimizer update of one leaf, elementwise, returning new
-    tensors — the plain version of the kernel's body and of the leaf
-    layout. Mirrors optim/method.py expression for expression. `lr` is a
-    0-dim fp32 tensor; bc1/bc2 are exact fp32 values."""
+    tensors — the plain version of the kernel's body. Mirrors
+    optim/method.py expression for expression. `lr` is a 0-dim fp32
+    tensor; bc1/bc2 are exact fp32 values."""
     if kind in ("adam", "adamw"):
         b1, b2, eps, wd = (hyper["b1"], hyper["b2"], hyper["eps"],
                            hyper["wd"])
@@ -238,45 +233,28 @@ fused_update.launches = _native.LaunchCounter()
 
 
 # --------------------------------------------------------- tree-level API
-def make_update_fn(method, *, layout: str = "auto") -> Optional[Callable]:
+def make_update_fn(method) -> Optional[Callable]:
     """A drop-in replacement for `method.update` (same ``(params, grads,
     slots, lr, step) -> (new_params, new_slots)`` signature over path
-    dicts), or None when the method has no fused form. `layout`: 'flat'
-    (one `fused_update` call over every float leaf, in place), 'leaf'
-    (`_math` per leaf) or 'auto' (flat for CUDA tensors, leaf for CPU
-    tensors)."""
+    dicts), or None when the method has no fused form. One `fused_update`
+    call over every float leaf, which updates the params and slots in
+    place and returns them: K1 for CUDA tensors, the plain version for
+    CPU tensors."""
     desc = describe(method)
     if desc is None:
         return None
-    if layout not in ("auto", "flat", "leaf"):
-        raise ValueError(f"unknown fused-update layout {layout!r}")
     kind, hyper = desc
     names = slot_names(kind, hyper)
 
     def update(params, grads, slots, lr, step):
         keys = [k for k, p in params.items() if p.is_floating_point()]
-        if not keys:
-            return params, slots
-        lay = layout
-        if lay == "auto":
-            lay = "flat" if params[keys[0]].is_cuda else "leaf"
-        bc1, bc2 = _bias_corrections(kind, hyper, step)
-        new_p = dict(params)
-        new_slots = {nm: dict(slots[nm]) for nm in names}
-        leaves_p = [params[k] for k in keys]
-        leaves_g = [grads[k] for k in keys]
-        leaves_s = [[slots[nm][k] for k in keys] for nm in names]
-        if lay == "flat":
-            fused_update(kind, hyper, leaves_p, leaves_g, leaves_s, lr, bc1,
-                         bc2)
-            return new_p, (dict(slots, **new_slots) if names else slots)
-        pn, sn = fused_update_plain(kind, hyper, leaves_p, leaves_g, leaves_s,
-                                    lr, bc1, bc2)
-        for j, k in enumerate(keys):
-            new_p[k] = pn[j]
-            for nm, s in zip(names, sn):
-                new_slots[nm][k] = s[j]
-        return new_p, (dict(slots, **new_slots) if names else slots)
+        if keys:
+            bc1, bc2 = _bias_corrections(kind, hyper, step)
+            fused_update(kind, hyper, [params[k] for k in keys],
+                         [grads[k] for k in keys],
+                         [[slots[nm][k] for k in keys] for nm in names],
+                         lr, bc1, bc2)
+        return params, slots
 
     update.__name__ = f"fused_{kind}_update"
     return update

@@ -1,6 +1,7 @@
 """Attention (counterpart of bigdl_tpu/nn/attention.py): the dense
 softmax attention, the online-softmax blockwise attention (the
-recompute that flash attention's backward differentiates through), the
+reference's recompute for flash attention's backward; the port
+recomputes densely, see kernels/flash_attention.py), the
 bottom-right causal and padding masks, rotary embeddings and
 MultiHeadAttention with GQA, RoPE and a callable `attn_impl` (the seam
 kernels/flash_attention.FlashAttention plugs into). MultiHeadAttention's
@@ -66,8 +67,9 @@ def blockwise_attention(q, k, v, *, block_size: int, causal: bool = False,
                         scale: Optional[float] = None,
                         q_offset: Optional[int] = None):
     """Attention as a loop over KV blocks with an online softmax (max
-    and sum carried in fp32): peak memory O(Tq * block) instead of
-    O(Tq * Tk), numerically dense attention up to summation order.
+    and sum carried in fp32), numerically dense attention up to
+    summation order. Without autograd it holds one block's scores at a
+    time, O(Tq * block); under autograd every block's are kept.
 
     q: (B, H, Tq, d), k/v: (B, H, Tk, d); Tk must divide by block_size.
     `q_offset` positions the queries within the key sequence for causal

@@ -186,10 +186,14 @@ class Optimizer:
         return loss.detach(), dict(zip(params.keys(), grads))
 
     def _apply_update(self, method_update, params, grads, slots, lr,
-                      step_num, frozen):
+                      step_num, frozen, guard_loss=None):
         """Gradient processors, the update, and freeze: a frozen leaf
         keeps its value whatever the update rule does (its slots still
-        advance, as in the reference)."""
+        advance, as in the reference). With `guard_loss` (the
+        accumulating step, which the reference runs inside its guarded
+        scan) a step whose loss or updated params are not all finite is
+        masked on the device: params and slots keep their old values and
+        the non-finite loss still reaches `_flush_metrics`."""
         for proc in self.grad_processors:
             grads = proc(grads, params)
         with torch.no_grad():
@@ -198,6 +202,10 @@ class Optimizer:
                 mask = self.model.trainable_mask(params)
                 kept = {k: params[k].clone() for k, ok in mask.items()
                         if not ok}
+            if guard_loss is not None:   # the fused update works in place
+                old_p = {k: p.clone() for k, p in params.items()}
+                old_s = {nm: {k: s.clone() for k, s in sl.items()}
+                         for nm, sl in slots.items()}
             new_params, new_slots = method_update(params, grads, slots, lr,
                                                   step_num)
             for k, p in params.items():
@@ -205,6 +213,16 @@ class Optimizer:
                     p.copy_(kept[k])
                 elif new_params[k] is not p:   # the fused kernel is in place
                     p.data = new_params[k]
+            if guard_loss is not None:
+                ok = torch.isfinite(guard_loss)
+                for p in params.values():
+                    if p.is_floating_point():
+                        ok = ok & torch.isfinite(p).all()
+                for k, p in params.items():
+                    p.copy_(torch.where(ok, p, old_p[k]))
+                new_slots = {nm: {k: torch.where(ok, s, old_s[nm][k])
+                                  for k, s in sl.items()}
+                             for nm, sl in new_slots.items()}
         return new_slots
 
     def _make_step(self) -> Callable:
@@ -227,7 +245,8 @@ class Optimizer:
         """Gradient-accumulation variant of `_make_step`: the batch is
         split into `accum_steps` microbatches whose gradients (and mean
         losses) are summed from zero and divided by M, then ONE update is
-        applied — equal microbatches make that the full-batch mean."""
+        applied — equal microbatches make that the full-batch mean. A
+        non-finite step is masked, as in the reference's scan step."""
         frozen = any(getattr(m, "_frozen", False)
                      for m in self.model.modules())
         method_update = self._resolve_update_fn()
@@ -245,9 +264,10 @@ class Optimizer:
                 gsum = {k: gsum[k] + g for k, g in grads.items()}
                 lsum = lsum + loss
             grads = {k: g / M for k, g in gsum.items()}
+            loss = lsum / M
             slots = self._apply_update(method_update, params, grads, slots,
-                                       lr, step_num, frozen)
-            return slots, lsum / M
+                                       lr, step_num, frozen, guard_loss=loss)
+            return slots, loss
 
         return step
 
@@ -259,13 +279,9 @@ class Optimizer:
         and keeps the oracle — the knob never changes which methods
         train correctly."""
         from bigdl_tpu_torch.kernels import fused_update as _fu
-        mode = _fu.configured_mode()
-        if mode is None:
+        if not _fu.enabled():
             return self.method.update
-        opts = self._fused_update_opts()
-        if mode in ("flat", "leaf"):     # explicit layout override
-            opts["layout"] = mode
-        fn = _fu.make_update_fn(self.method, **opts)
+        fn = _fu.make_update_fn(self.method)
         if fn is None:
             if not getattr(self, "_warned_fused_update", False):
                 self._warned_fused_update = True
@@ -275,11 +291,6 @@ class Optimizer:
                     "update", type(self.method).__name__)
             return self.method.update
         return fn
-
-    def _fused_update_opts(self) -> Dict:
-        """Layout options for the fused update: the local trainer lets
-        the tensors pick (the kernel for CUDA tensors, leaf elsewhere)."""
-        return {"layout": "auto"}
 
     # ---------------------------------------------------------------- data
     def _place_batch(self, x, y):

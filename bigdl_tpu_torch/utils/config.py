@@ -81,11 +81,11 @@ _register("MAX_NONFINITE", 3, int,
 _register("FUSED_UPDATE", "", str,
           "Run the optimizer update (Adam/AdamW/SGD) through the fused "
           "update (kernels/fused_update.py). '' / 0 (default) = off: the "
-          "OptimMethod.update path stays the oracle. 1 = auto layout: "
-          "the one-launch CUDA kernel over the leaf list for CUDA "
-          "tensors, per-leaf fused math for CPU tensors. 'flat' / 'leaf' "
-          "force a layout. Unsupported methods log once and keep "
-          "OptimMethod.update")
+          "OptimMethod.update path stays the oracle. Anything else "
+          "(1, or the reference's 'flat' / 'leaf') = on: the one-launch "
+          "CUDA kernel over the leaf list for CUDA tensors, its plain "
+          "version for CPU tensors. Unsupported methods log once and "
+          "keep OptimMethod.update")
 
 
 def get(name: str):

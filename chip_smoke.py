@@ -10,8 +10,9 @@ Phases, in order; any failed check exits non-zero:
   2. kernels — each kernel's wrapper against its plain PyTorch version on
      the card, at the main paths' shapes and at ragged ones: flash
      attention within FLASH_TOL, the int8 GEMM and the fused optimizer
-     update bit for bit, flash attention's gradients (recompute backward)
-     within GRAD_TOL of autograd through the plain version; with kernel,
+     update bit for bit, flash attention's gradients (dense recompute
+     backward) within GRAD_TOL of autograd through the plain version, with
+     the peak memory of each backward; with kernel,
      plain and library times (CUDA events) and the bound the card's
      peaks set;
   3. the slice — LlamaLM at the 125M width (vocab 32000, d 768, 12 heads,
@@ -59,9 +60,10 @@ PEAK_INT8_S = 1979e12
 # different orders (online vs one-pass softmax); 2e-5 abs + 2e-5 rel is
 # the reference's own flash-vs-dense tolerance (tests/test_kernels.py)
 FLASH_TOL = 2e-5
-# fp32 attention gradients, the recompute backward (blockwise online
-# softmax) against autograd through the dense plain version: sums in
-# other orders over T = 1024 keys
+# fp32 attention gradients, the recompute backward (autograd through the
+# dense plain version) against autograd through the plain version: the
+# same ops on the same inputs, expected bit for bit; the margin covers a
+# GEMM algorithm chosen otherwise
 GRAD_TOL = 1e-4
 # the served model: 125M LLaMA width, depth kept
 VOCAB, D, HEADS, KV_HEADS, D_FF, LAYERS, SEQ = 32000, 768, 12, 4, 3072, 12, 512
@@ -192,10 +194,12 @@ def check_int8(dev, gen):
 
 
 def check_flash_backward(dev, gen):
-    """Gradients through the K2 Function (kernel forward, blockwise
+    """Gradients through the K2 Function (kernel forward, dense
     recompute backward) against autograd through the plain version, at
     the training shape and a ragged one; the backward timed at the
-    training shape beside the plain version's and SDPA's backward."""
+    training shape beside the plain version's and SDPA's backward, with
+    the peak memory of a forward and backward of each above the
+    inputs."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.kernels.flash_attention import (
@@ -232,19 +236,31 @@ def check_flash_backward(dev, gen):
     fwd = cuda_ms(lambda: flash_attention(q.detach(), k.detach(), v.detach(),
                                           causal=True))
 
-    def bwd_ms(out):
-        return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
-                                                   retain_graph=True),
-                       iters=5, warmup=1)
-    ms = bwd_ms(flash_attention(q, k, v, causal=True))
-    plain = bwd_ms(flash_attention_plain(q, k, v, causal=True))
-    lib = bwd_ms(F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    def bwd(attn):
+        """(backward ms, peak MiB of one forward and backward above the
+        inputs)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = attn(q, k, v)
+        torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        return cuda_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), g, retain_graph=True), iters=5, warmup=1), peak
+    (ms, mib), (plain, plain_mib), (lib, lib_mib) = (
+        bwd(lambda *a: flash_attention(*a, causal=True)),
+        bwd(lambda *a: flash_attention_plain(*a, causal=True)),
+        bwd(lambda *a: F.scaled_dot_product_attention(*a, is_causal=True)))
     log(f"  flash backward B={TRAIN_BATCH} H={HEADS} T={TRAIN_SEQ} d="
-        f"{D // HEADS} causal: recompute {ms:.4f} ms, plain autograd "
-        f"{plain:.4f} ms, sdpa backward {lib:.4f} ms; kernel forward at "
+        f"{D // HEADS} causal: recompute {ms:.4f} ms (peak +{mib:.1f} MiB), "
+        f"plain autograd {plain:.4f} ms (+{plain_mib:.1f} MiB), sdpa "
+        f"backward {lib:.4f} ms (+{lib_mib:.1f} MiB); kernel forward at "
         f"this shape {fwd:.4f} ms")
     return {"backward_ms": ms, "backward_plain_ms": plain,
             "backward_library_ms": lib, "backward_max_abs_err": worst,
+            "backward_peak_mib": mib, "backward_plain_peak_mib": plain_mib,
+            "backward_library_peak_mib": lib_mib,
             "train_forward_ms": fwd,
             "backward_shape": f"B={TRAIN_BATCH} H={HEADS} Tq=Tk={TRAIN_SEQ} "
                               f"d={D // HEADS} causal fp32"}
@@ -287,6 +303,7 @@ def check_fused_update(dev, gen):
                                                  dampening=0.1,
                                                  weight_decay=1e-4)),
                ("sgd nesterov", pm.SGD(0.1, momentum=0.9, nesterov=True))]
+    worst = 0.0
     for label, method in methods:
         kind, hyper = fu.describe(method)
         names = fu.slot_names(kind, hyper)
@@ -297,16 +314,19 @@ def check_fused_update(dev, gen):
                                                    TRAIN_LR, bc1, bc2)
             fu.fused_update(kind, hyper, ps, gs, ss, TRAIN_LR, bc1, bc2)
             torch.cuda.synchronize()
-            same = (all(torch.equal(a, b) for a, b in zip(ps, want_p))
-                    and all(torch.equal(a, b) for sa, sb in zip(ss, want_s)
-                            for a, b in zip(sa, sb)))
+            pairs = list(zip(ps, want_p)) + [
+                ab for sa, sb in zip(ss, want_s) for ab in zip(sa, sb)]
+            same = all(torch.equal(a, b) for a, b in pairs)
+            err = max(((a - b).abs().max().item() for a, b in pairs
+                       if a.numel()), default=0.0)
+            worst = max(worst, err)
             log(f"  fused_update {label}: {len(shapes)} leaves, "
                 f"{sum(math.prod(s) for s in shapes)} elements, bitwise "
-                f"equal to plain: {same}")
+                f"equal to plain: {same} (max diff {err:.3e})")
             if not same:
                 raise SystemExit("fused_update is not bitwise equal to its "
                                  "plain version")
-            del want_p, want_s
+            del want_p, want_s, pairs
     # timing: Adam over the model's leaves, in place, repeatedly
     kind, hyper = fu.describe(pm.Adam(TRAIN_LR))
     ps, gs, (ms_, vs) = leaves(model, ("m", "v"))
@@ -330,7 +350,7 @@ def check_fused_update(dev, gen):
     return {"name": "fused_update", "route": "cuda",
             "source": "bigdl_tpu_torch/kernels/csrc/fused_update.cu",
             "replaces": "bigdl_tpu/kernels/fused_update.py:202",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
             "shape": f"Adam over the 125M LlamaLM's {len(model)} fp32 "
                      f"leaves, {n_model} params"}

@@ -33,6 +33,7 @@ from bigdl_tpu_torch.kernels.flash_attention import (FlashAttention,
 from bigdl_tpu_torch.models import train as train_cli
 from bigdl_tpu_torch.nn import criterion as pc
 from bigdl_tpu_torch.nn.attention import blockwise_attention, padding_mask
+from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.optim import method as pm
 from bigdl_tpu_torch.optim.local import Optimizer
 from bigdl_tpu_torch.optim.trigger import Trigger
@@ -171,11 +172,12 @@ def test_bias_corrections_match_reference():
 @pytest.mark.parametrize("name,make", FUSED_CASES, ids=[c[0] for c in
                                                         FUSED_CASES])
 def test_make_update_fn_matches_reference(name, make):
-    """make_update_fn's flat, leaf and auto layouts against the
-    reference's flat Pallas layout (interpret mode), from a non-zero
-    state carried over with slots_from_jax; besides the arithmetic
-    above, the bias correction's 1-ulp pow differs (magnified by
-    1 - b ** t), within the same tolerance."""
+    """make_update_fn against the reference's flat Pallas layout
+    (interpret mode), from a non-zero state carried over with
+    slots_from_jax; besides the arithmetic above, the bias correction's
+    1-ulp pow differs (magnified by 1 - b ** t), within the same
+    tolerance. Bit for bit equal to the port's tree-map oracle, and in
+    place, as the kernel is."""
     params, grads = _tree()
     jmeth, pmeth = make(jm), make(pm)
     params, slots = _warm_slots(jmeth, params, grads)
@@ -183,28 +185,27 @@ def test_make_update_fn_matches_reference(name, make):
                               interpret=True, block_rows=8)
     want_p, want_s = jupd(params, grads, slots, jnp.float32(5e-3),
                           jnp.int32(7))
-    for layout in ("flat", "leaf", "auto"):
-        p, g = _paths(params), _paths(grads)
-        s = slots_from_jax(np_tree(slots), CPU)
-        got_p, got_s = fu.make_update_fn(pmeth, layout=layout)(
-            p, g, s, 5e-3, 7)
-        _assert_close(got_p, want_p)
-        for nm in fu.slot_names(*fu.describe(pmeth)):
-            _assert_close(got_s[nm], want_s[nm])
-        # the port's layouts agree with each other and with the oracle
-        # bit for bit
-        want_o, _ = pmeth.update(_paths(params), g,
-                                 slots_from_jax(np_tree(slots), CPU), 5e-3, 7)
-        for k in want_o:
-            assert torch.equal(got_p[k], want_o[k]), (layout, k)
-    # the flat layout updates the leaves in place, as the kernel does
-    p = _paths(params)
-    new_p, _ = fu.make_update_fn(pmeth, layout="flat")(
-        p, _paths(grads), pmeth.init_slots(p), 1e-3, 0)
-    assert all(new_p[k] is p[k] for k in p)
+    p, g = _paths(params), _paths(grads)
+    s = slots_from_jax(np_tree(slots), CPU)
+    got_p, got_s = fu.make_update_fn(pmeth)(p, g, s, 5e-3, 7)
+    _assert_close(got_p, want_p)
+    for nm in fu.slot_names(*fu.describe(pmeth)):
+        _assert_close(got_s[nm], want_s[nm])
+        assert all(got_s[nm][k] is s[nm][k] for k in p)
+    want_o, want_os = pmeth.update(_paths(params), g, slots_from_jax(
+        np_tree(slots), CPU), 5e-3, 7)
+    for k in want_o:
+        assert got_p[k] is p[k]
+        assert torch.equal(got_p[k], want_o[k]), k
+        for nm in want_os:
+            assert torch.equal(got_s[nm][k], want_os[nm][k]), (nm, k)
 
 
-def test_fused_update_cpu_wrapper_does_not_launch():
+def test_fused_update_cpu_wrapper_does_not_launch(monkeypatch):
+    for raw, on in (("", False), ("0", False), ("off", False), ("1", True),
+                    ("flat", True), ("leaf", True)):
+        monkeypatch.setenv("BIGDL_TPU_FUSED_UPDATE", raw)
+        assert fu.enabled() is on, raw
     kind, hyper = fu.describe(pm.Adam(1e-3))
     p = [torch.ones(5)]
     g = [torch.full((5,), 0.5)]
@@ -275,9 +276,9 @@ def test_padding_mask():
                                           (24, 33, False), (33, 33, True)])
 def test_flash_gradients_match_reference(tq, tk, causal):
     """q/k/v gradients through the port's FlashAttention Function (the
-    plain forward on the CPU, the blockwise recompute backward) against
+    plain forward on the CPU, the dense recompute backward) against
     jax.grad through the Pallas kernel in interpret mode (its custom_vjp
-    recomputes through blockwise attention too)."""
+    recomputes through blockwise attention)."""
     q, k, v = _qkv(tq=tq, tk=tk, seed=tq + tk)
     w = np.random.RandomState(9).randn(2, 2, tq, 16).astype(np.float32)
 
@@ -393,6 +394,48 @@ def test_trainer_matches_reference(monkeypatch, flash, fused, accum):
         np.testing.assert_allclose(pparams[k].numpy(), want[k].numpy(),
                                    atol=PARAM_ATOL, rtol=0, err_msg=k)
     assert popt.state["neval"] == 5 and popt.state["epoch"] == 1
+
+
+@pytest.mark.parametrize("fused", ["0", "1"], ids=["oracle", "fused"])
+def test_accum_step_masks_a_nonfinite_step_as_reference(monkeypatch, fused):
+    """accum_steps=2 with a NaN in one microbatch of the second batch:
+    the reference's scan step masks that step's update and trains on;
+    so does the port. Per-step losses (the NaN included) within 1e-5
+    relative, final params within 1e-4 absolute."""
+    monkeypatch.setenv("BIGDL_TPU_FUSED_UPDATE", fused)
+    r = np.random.RandomState(5)
+    batches = [(r.randn(4, 6).astype(np.float32),
+                r.randint(0, 5, (4,)).astype(np.int32)) for _ in range(3)]
+    batches[1][0][0, 2] = np.nan
+    jmod, pmod = jnn.Linear(6, 5), Linear(6, 5)
+    params, state, pmod = port_from(jmod, pmod)
+
+    jopt = JaxOptimizer(jmod, JaxIteratorDataSet(
+        lambda: iter([JaxMiniBatch(x, y) for x, y in batches])),
+        jnn.CrossEntropyCriterion(), jm.Adam(1e-2), accum_steps=2)
+    jopt.set_initial(params, state).set_end_when(JaxTrigger.max_iteration(5))
+    jsum = _Losses()
+    jparams, _ = jopt.set_train_summary(jsum).optimize()
+
+    popt = Optimizer(pmod, IteratorDataSet(
+        lambda: iter([MiniBatch(x, y) for x, y in batches])),
+        pc.CrossEntropyCriterion(), pm.Adam(1e-2), accum_steps=2, device=CPU)
+    psum = _Losses()
+    pparams, _ = popt.set_train_summary(psum).set_end_when(
+        Trigger.max_iteration(5)).optimize()
+
+    # the poisoned batch comes again in the second epoch (step 5); two
+    # non-finite steps that are not consecutive never abort
+    assert np.isnan(psum.losses).tolist() == [False, True, False, False,
+                                              True]
+    np.testing.assert_allclose(psum.losses, jsum.losses, rtol=LOSS_RTOL)
+    want = _paths(jparams)
+    for k in want:
+        assert torch.isfinite(pparams[k]).all(), k
+        np.testing.assert_allclose(pparams[k].numpy(), want[k].numpy(),
+                                   atol=PARAM_ATOL, rtol=0, err_msg=k)
+    for sl in popt.slots.values():
+        assert all(torch.isfinite(s).all() for s in sl.values())
 
 
 def test_trainer_freeze_clipping_and_refusals(monkeypatch):
