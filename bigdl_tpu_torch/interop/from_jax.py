@@ -18,11 +18,22 @@ hold no leaves.
 (`{"m": tree, "v": tree}` for Adam, `{"velocity": tree}` for SGD with
 momentum) into the `{slot name: {dotted path: tensor}}` dicts the
 port's OptimMethods and trainer take.
+
+The pipelined LM's reference state packs each pipeline stage's
+parameters into one zero-padded fp32 row of `pv["flat"]` (S, L), in the
+order `jax.tree.flatten` visits the stage's tree: dict keys sorted at
+every level, so `b0, b1, b10, b11, b2, ...`, then `attn, ffn, ln1, ln2`,
+then `wk, wo, wq, wv` and `bias, weight`. `flat_layout` gives that order
+from a port stage, `rows_to_paths` unpacks rows by it and `paths_to_rows`
+packs the port's parameters back into rows; `load_pipelined_lm` carries
+a whole reference state and its optimizer slots (`(slot trees, step)`
+from the reference's `init_update_slots`) into a port PipelinedLM, and
+`pipelined_lm_state` is the inverse.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,3 +113,98 @@ def _load(mod, params, dev, path):
                 raise ValueError(f"{path}{k}: tree leaf {tuple(t.shape)} vs "
                                  f"declared {tuple(specs[k].shape)}")
             mod.set_param(k, t)
+
+
+def flat_layout(stage: Module) -> List[Tuple[str, Tuple[int, ...]]]:
+    """(path, shape) of a stage's declared parameters in the order the
+    reference packs them into its flat row: sorted by the path's keys,
+    level by level (jax.tree.flatten's order for nested dicts)."""
+    out = []
+    for mname, mod in stage.named_modules():
+        if isinstance(mod, Module):
+            for pname, spec in mod.param_specs().items():
+                out.append((f"{mname}.{pname}" if mname else pname,
+                            tuple(spec.shape)))
+    return sorted(out, key=lambda e: tuple(e[0].split(".")))
+
+
+def rows_to_paths(pipe, flat, device=None) -> Dict[str, torch.Tensor]:
+    """Unpack the reference's (S, L) rows into `{"s{i}.<path>": tensor}`,
+    the pipeline's `named_parameters()` keys, on `device`."""
+    dev = resolve_device(device)
+    flat = np.asarray(flat)
+    if flat.shape[0] != pipe.n_stages:
+        raise ValueError(f"{flat.shape[0]} rows for {pipe.n_stages} stages")
+    out = {}
+    for i, stage in enumerate(pipe.stages):
+        off = 0
+        for path, shape in flat_layout(stage):
+            size = int(np.prod(shape)) if shape else 1
+            if off + size > flat.shape[1]:
+                raise ValueError(f"row {i} holds {flat.shape[1]} values; "
+                                 f"stage {i}'s parameters need more")
+            out[f"s{i}.{path}"] = _tensor(
+                flat[i, off:off + size].reshape(shape), dev)
+            off += size
+    return out
+
+
+def paths_to_rows(pipe, tree: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> np.ndarray:
+    """Pack `{"s{i}.<path>": tensor}` (default: the pipeline's own
+    parameters) into the reference's (S, L) fp32 rows, each zero-padded
+    to the widest stage."""
+    if tree is None:
+        tree = {k: p.detach() for k, p in pipe.named_parameters()}
+    rows = [np.concatenate(
+        [tree[f"s{i}.{path}"].detach().cpu().numpy().astype(
+            np.float32).ravel() for path, _ in flat_layout(stage)]
+        or [np.zeros(0, np.float32)])
+        for i, stage in enumerate(pipe.stages)]
+    width = max(r.size for r in rows) or 1
+    return np.stack([np.pad(r, (0, width - r.size)) for r in rows])
+
+
+def _lm_paths(lm, tree, dev) -> Dict[str, torch.Tensor]:
+    """A reference {"emb", "ln", "flat"} tree as the port's paths."""
+    out = {"emb": _tensor(tree["emb"], dev)}
+    out.update(tree_to_paths({"ln": tree["ln"]}, dev))
+    out.update({f"pipe.{k}": v
+                for k, v in rows_to_paths(lm.pipe, tree["flat"],
+                                          dev).items()})
+    return out
+
+
+def load_pipelined_lm(lm, state: Dict[str, Any], slots=None, device=None):
+    """Copy a reference PipelinedLM state `{"emb", "ln", "pv": {"flat",
+    "state"}}` (numpy leaves) into the port's `lm`, in place, on `device`
+    (default `cuda`). With the reference's `slots = (slot trees over
+    {"emb", "ln", "flat"}, step)` returns the port's `(slot trees over
+    lm.param_tree() paths, step)` for PipelinedLM.train_step; else
+    None."""
+    dev = resolve_device(device)
+    if np.any(np.asarray(state["pv"].get("state", 0))):
+        raise ValueError("the ported stages keep no state; this pipeline "
+                         "state row is not zero")
+    tree = {"emb": state["emb"], "ln": state["ln"],
+            "flat": state["pv"]["flat"]}
+    for path, t in _lm_paths(lm, tree, dev).items():
+        mod_path, _, leaf = path.rpartition(".")
+        mod = lm.get_submodule(mod_path) if mod_path else lm
+        mod.set_param(leaf, t)
+    if slots is None:
+        return None
+    inner, step = slots
+    return ({name: _lm_paths(lm, t, dev) for name, t in
+             (inner or {}).items()}, int(step))
+
+
+def pipelined_lm_state(lm) -> Dict[str, Any]:
+    """The inverse of load_pipelined_lm's parameter half: the port's
+    parameters as the reference's `{"emb", "ln", "pv": {"flat"}}` with
+    numpy leaves."""
+    def np_(t):
+        return t.detach().cpu().numpy()
+    return {"emb": np_(lm.emb),
+            "ln": {"bias": np_(lm.ln.bias), "weight": np_(lm.ln.weight)},
+            "pv": {"flat": paths_to_rows(lm.pipe)}}

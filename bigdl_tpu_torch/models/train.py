@@ -96,8 +96,8 @@ def train_ptb(args):
     for flag in ("pipeline_stages", "seq_parallel", "moe_experts"):
         if getattr(args, flag) > 1:
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
-                f"slice 5: parallel/ and its models)")
+                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP, "
+                f"the distributed slice: parallel/ and its models)")
     if args.model != "llama":
         raise NotImplementedError(
             f"--model {args.model} is not ported yet (ROADMAP slice 2 "

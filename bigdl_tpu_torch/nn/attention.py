@@ -2,11 +2,13 @@
 softmax attention, the online-softmax blockwise attention (the
 reference's recompute for flash attention's backward; the port
 recomputes densely, see kernels/flash_attention.py), the
-bottom-right causal and padding masks, rotary embeddings and
+bottom-right causal and padding masks, rotary embeddings,
 MultiHeadAttention with GQA, RoPE and a callable `attn_impl` (the seam
-kernels/flash_attention.FlashAttention plugs into). MultiHeadAttention's
-'blockwise' attn_impl and the cached/slot/paged decode helpers are not
-ported yet.
+kernels/flash_attention.FlashAttention plugs into), the sinusoidal
+position signal, FeedForwardNetwork and the pre-norm TransformerLayer.
+MultiHeadAttention's 'blockwise' attn_impl, TransformerLayer's
+cross-attention and the cached/slot/paged decode helpers are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.core import init as initializers
 from bigdl_tpu_torch.core.module import Module, ParamSpec
+from bigdl_tpu_torch.nn.linear import Linear
+from bigdl_tpu_torch.nn.normalization import LayerNormalization
 
 # the reference's finite mask fill (nn/attention.py NEG_INF): a fully
 # masked row softmaxes to uniform weights instead of NaN
@@ -218,3 +222,73 @@ class MultiHeadAttention(Module):
         if self.has_bias:
             out = out + self.bo
         return F.dropout(out, self.dropout, self.training)
+
+
+def _ffn_relu(x):
+    return torch.relu(x)
+
+
+class FeedForwardNetwork(Module):
+    """Position-wise FFN: Linear(d, d_ff) -> activation -> Linear(d_ff, d),
+    children `w1` and `w2` with biases (the reference's FFN dropout is
+    not ported; TransformerLayer refuses dropout in training)."""
+
+    def __init__(self, d_model: int, d_ff: int, activation=_ffn_relu,
+                 name=None):
+        super().__init__(name)
+        self.w1 = self.add_child("w1", Linear(d_model, d_ff))
+        self.w2 = self.add_child("w2", Linear(d_ff, d_model))
+        self.activation = activation
+
+    def forward(self, x):
+        return self.w2(self.activation(self.w1(x)))
+
+
+class TransformerLayer(Module):
+    """One pre-norm transformer block, x + attn(ln1(x)) then
+    x + ffn(ln2(x)); children `ln1`, `attn` (dense, no biases), `ln2`,
+    `ffn`. Self-attention only (the reference's `cross=True` decoder
+    block, its other attention and FFN options and its cached decode
+    steps are not ported yet); `dropout > 0` raises in training."""
+
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, *,
+                 dropout: float = 0.0, ln_eps: float = 1e-6, name=None):
+        super().__init__(name)
+        self.dropout = dropout
+        self.ln1 = self.add_child("ln1", LayerNormalization(d_model,
+                                                            eps=ln_eps))
+        self.attn = self.add_child("attn", MultiHeadAttention(d_model,
+                                                              num_heads))
+        self.ln2 = self.add_child("ln2", LayerNormalization(d_model,
+                                                            eps=ln_eps))
+        self.ffn = self.add_child("ffn", FeedForwardNetwork(d_model, d_ff))
+
+    def forward(self, x, *, mask=None, causal: bool = False):
+        if self.training and self.dropout > 0.0:
+            raise NotImplementedError(
+                f"TransformerLayer dropout={self.dropout} in training is not "
+                f"ported yet (ROADMAP Queue 1: dropout, whose RNG the port "
+                f"does not reproduce)")
+        x = x + self.attn(self.ln1(x), mask=mask, causal=causal)
+        return x + self.ffn(self.ln2(x))
+
+
+def positional_encoding_at(positions, d: int, dtype=torch.float32):
+    """Sinusoidal signal at the given (T,) positions: sin then cos halves
+    with frequencies exp(-ln(10000) * i / max(1, d//2 - 1)); an odd `d`
+    gets a zero last column."""
+    pos = positions.to(torch.float32)[:, None]
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, device=pos.device,
+                                    dtype=torch.float32) / max(1, half - 1))
+    angles = pos * freq[None, :]
+    enc = torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+    if enc.shape[-1] < d:
+        enc = F.pad(enc, (0, d - enc.shape[-1]))
+    return enc.to(dtype)
+
+
+def positional_encoding(t: int, d: int, dtype=torch.float32, device=None):
+    """Sinusoidal position signal for positions 0..t-1, (t, d)."""
+    return positional_encoding_at(torch.arange(t, device=device), d, dtype)

@@ -189,3 +189,29 @@ class RMSprop(OptimMethod):
         new_params = {k: p - lr * grads[k] / (torch.sqrt(sq[k]) + self.epsilon)
                       for k, p in params.items()}
         return new_params, {"sq_avg": sq}
+
+
+def init_update_slots(method: OptimMethod, params: Tree):
+    """Slots for `apply_update`: the method's own slot trees and the step
+    counter, a host int that `apply_update` advances."""
+    return (method.init_slots(params), 0)
+
+
+def apply_update(method: Optional[OptimMethod], params: Tree, grads: Tree,
+                 slots, sgd_lr: float = 1e-3):
+    """One optimizer update outside the trainer (the pipelined LM's step).
+    `method=None` is plain SGD at `sgd_lr`, `p - sgd_lr * g`. Otherwise
+    the method's learning rate and schedule set the rate, the schedule
+    running on the host at the slots' step counter (a constant rate reads
+    nothing from the card), and the counter advances. Returns
+    (new_params, new_slots)."""
+    if method is None:
+        return {k: p - sgd_lr * grads[k] for k, p in params.items()}, slots
+    inner, t = slots
+    sched = method.schedule
+    if isinstance(sched, Default) and sched.lr_decay == 0.0:
+        lr = method.learning_rate
+    else:
+        lr = method.current_lr({"neval": t, "epoch": 0})
+    new_params, new_inner = method.update(params, grads, inner, lr, t)
+    return new_params, (new_inner, t + 1)

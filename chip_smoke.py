@@ -33,7 +33,24 @@ Phases, in order; any failed check exits non-zero:
      launches per step, the first loss equal (1e-5 relative) to a step
      of the same weights with dense attention and the flag off, and the
      fused update bitwise equal to Adam.update on the trained state;
-     with the step time (median), tokens/s and a split of one step.
+     with the step time (median), tokens/s and a split of one step;
+  6. the pipelined LM at GPT-2-small width (PipelinedLM: vocab 50257,
+     d 768, 12 heads, d_ff 3072, 12 layers, one stage, 4 microbatches,
+     fused_loss) trained with Adam(3e-4) for TRAIN_STEPS steps on one
+     fixed batch of 8 x 1024 tokens: every loss finite, the mean of the
+     last 5 at least 0.5 below the first, exactly 4 launches of each cut
+     cross-entropy kernel (K3a, K3b, K3c) per step and no flash-attention
+     launch, the first loss equal (1e-5 relative) to a dense-loss step of
+     the same weights, the embedding after one step within EMB_TOL_LR * lr
+     of that step's, and the trained model's logits finite with a mean
+     loss equal (1e-5 relative) to its fused loss; with the step time
+     (median), tokens/s, a split of one step, the device idle share and
+     the peak memory of both losses.
+
+Phase 2 also holds the cut cross-entropy kernels (K3a/K3b/K3c) and the
+autograd Function around them against the dense plain version within
+CCE_TOL, at the pipelined LM's shape and at ragged ones, and shows that a
+TF32 product would fail that tolerance.
 
 The last lines are the kernel record (one JSON object), the card line,
 and `{"ok": true, "device": {...}}`. Exits non-zero without printing a
@@ -50,7 +67,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("flash_attention", "quantized_matmul", "fused_update")
+KERNELS = ("flash_attention", "quantized_matmul", "fused_update",
+           "cut_cross_entropy")
 # published H100 SXM peaks (dense): HBM bytes/s, fp32 FLOP/s outside the
 # tensor cores, int8 tensor-core OP/s
 PEAK_BYTES_S = 3.35e12
@@ -65,11 +83,28 @@ FLASH_TOL = 2e-5
 # same ops on the same inputs, expected bit for bit; the margin covers a
 # GEMM algorithm chosen otherwise
 GRAD_TOL = 1e-4
+# cut cross-entropy, kernel against the dense plain version in fp32:
+# max|kernel - plain| <= CCE_TOL * max|plain|. Both sum in fp32 in other
+# orders (~1e-6 of the largest value); a TF32 product (10-bit mantissa)
+# moves dh and dw by ~1e-4 of theirs, which check_cut_cross_entropy
+# shows fails it
+CCE_TOL = 1e-5
+# the embedding after one Adam step, fused against dense loss, within
+# EMB_TOL_LR * lr: Adam's first step is lr * g / (|g| + eps), so where
+# |g| >> eps it is +-lr whatever the rounding, and where |g| is near eps
+# (the head's gradient of a row the batch barely touches) it scales a
+# rounding difference of g by lr / eps. A tenth of the step allows that
+# and fails a flipped step (2 lr) or a gradient wrong above rounding
+EMB_TOL_LR = 0.1
 # the served model: 125M LLaMA width, depth kept
 VOCAB, D, HEADS, KV_HEADS, D_FF, LAYERS, SEQ = 32000, 768, 12, 4, 3072, 12, 512
 MAX_BATCH, CLIENTS, REQS_PER_CLIENT = 8, 3, 4
 # the trained model: the same width, bench.py's training batch
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 1024, 30, 3e-4
+# the pipelined LM: GPT-2 small's published widths (Hugging Face `gpt2`),
+# one stage, 4 microbatches of 2 x 1024 tokens
+GPT2_VOCAB, GPT2_D, GPT2_HEADS, GPT2_FF, GPT2_LAYERS = 50257, 768, 12, 3072, 12
+PIPE_STAGES, PIPE_MICRO = 1, 4
 
 
 def log(*a):
@@ -354,6 +389,154 @@ def check_fused_update(dev, gen):
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
             "shape": f"Adam over the 125M LlamaLM's {len(model)} fp32 "
                      f"leaves, {n_model} params"}
+
+
+def check_cut_cross_entropy(dev, gen):
+    """K3a/K3b/K3c against their plain versions (the same lse and g), and
+    the Function's loss and gradients against autograd through the dense
+    plain version, at the pipelined LM's microbatch (N = 2 x 1024 rows,
+    D = 768, V = 50257) and at ragged shapes; a TF32 dense product held
+    to the same tolerance must fail it. Times each kernel at the path's
+    shape beside its plain version, the dense route's forward or backward
+    (matmul + F.cross_entropy, timed only) and its bound, with the peak
+    memory of a forward and backward of both routes."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.kernels import cut_cross_entropy as cce
+
+    def inputs(n, v, d):
+        h = torch.randn(n, d, generator=gen, device=dev)
+        w = torch.randn(v, d, generator=gen, device=dev) * d ** -0.5
+        labels = torch.randint(0, v, (n,), generator=gen, device=dev)
+        return h, w, labels
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / b.abs().max().item()
+
+    def abs_err(a, b):
+        return (a - b).abs().max().item()
+
+    worst = {"cce_lse": 0.0, "cce_dh": 0.0, "cce_dw": 0.0}
+    n_path = TRAIN_BATCH // PIPE_MICRO * TRAIN_SEQ
+    shapes = [(n_path, GPT2_VOCAB, GPT2_D), (333, 1029, 96), (130, 777, 100)]
+    for n, v, d in shapes:
+        h, w, labels = inputs(n, v, d)
+        g = torch.full((n,), 1.0 / n, device=dev)
+        lse_p = cce.cce_lse_plain(h, w)
+        pairs = {"cce_lse": (cce.cce_lse(h, w), lse_p),
+                 "cce_dh": (cce.cce_dh(h, w, lse_p, g),
+                            cce.cce_dh_plain(h, w, lse_p, g)),
+                 "cce_dw": (cce.cce_dw(h, w, lse_p, g),
+                            cce.cce_dw_plain(h, w, lse_p, g))}
+        errs = {k: rel(*ab) for k, ab in pairs.items()}
+        for k, ab in pairs.items():
+            worst[k] = max(worst[k], abs_err(*ab))
+        del pairs
+        hr, wr = h.clone().requires_grad_(), w.clone().requires_grad_()
+        loss = cce.cut_cross_entropy(hr, wr, labels) if n % 128 == 0 else \
+            cce.cut_cross_entropy(hr, wr, labels, block_n=n)
+        gh, gw = torch.autograd.grad(loss.mean(), (hr, wr))
+        want = cce.cut_cross_entropy_plain(hr, wr, labels)
+        wh, ww = torch.autograd.grad(want.mean(), (hr, wr))
+        torch.cuda.synchronize()
+        fn_errs = {"loss": rel(loss, want), "dh": rel(gh, wh),
+                   "dw": rel(gw, ww)}
+        ok = all(e <= CCE_TOL for e in [*errs.values(), *fn_errs.values()])
+        log(f"  cut cross-entropy N={n} V={v} D={d}: max|kernel - plain| / "
+            f"max|plain|: " + ", ".join(f"{k} {e:.3e}" for k, e in
+                                        errs.items())
+            + "; through the Function: " + ", ".join(
+                f"{k} {e:.3e}" for k, e in fn_errs.items())
+            + f"; within {CCE_TOL}: {ok}")
+        if not ok:
+            raise SystemExit("the cut cross-entropy kernels disagree with "
+                             "their plain versions")
+        del hr, wr, loss, gh, gw, want, wh, ww
+
+    # the tolerance has teeth: the plain dh and dw with TF32 products
+    h, w, labels = inputs(n_path, GPT2_VOCAB, GPT2_D)
+    g = torch.full((n_path,), 1.0 / n_path, device=dev)
+    lse_p = cce.cce_lse_plain(h, w)
+    exact = (cce.cce_dh_plain(h, w, lse_p, g), cce.cce_dw_plain(h, w, lse_p, g))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = (cce.cce_dh_plain(h, w, lse_p, g),
+                cce.cce_dw_plain(h, w, lse_p, g))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_errs = [rel(a, b) for a, b in zip(tf32, exact)]
+    log(f"  TF32 dense products at the path's shape: dh {tf32_errs[0]:.3e}, "
+        f"dw {tf32_errs[1]:.3e} of the largest value (tolerance "
+        f"{CCE_TOL}: fails it: {min(tf32_errs) > CCE_TOL})")
+    if min(tf32_errs) <= CCE_TOL:
+        raise SystemExit("CCE_TOL would pass a TF32 product; tighten it")
+    del exact, tf32
+
+    # timing at the path's shape
+    n, v, d = n_path, GPT2_VOCAB, GPT2_D
+    t_lse = cuda_ms(lambda: cce.cce_lse(h, w), iters=10)
+    t_dh = cuda_ms(lambda: cce.cce_dh(h, w, lse_p, g), iters=10)
+    t_dw = cuda_ms(lambda: cce.cce_dw(h, w, lse_p, g), iters=10)
+    p_lse = cuda_ms(lambda: cce.cce_lse_plain(h, w), iters=5, warmup=1)
+    p_dh = cuda_ms(lambda: cce.cce_dh_plain(h, w, lse_p, g), iters=5, warmup=1)
+    p_dw = cuda_ms(lambda: cce.cce_dw_plain(h, w, lse_p, g), iters=5, warmup=1)
+    hr, wr = h.clone().requires_grad_(), w.clone().requires_grad_()
+
+    def dense_fwd():
+        return F.cross_entropy(torch.matmul(hr, wr.T), labels,
+                               reduction="none")
+
+    lib_fwd = cuda_ms(dense_fwd, iters=5, warmup=1)
+    out = dense_fwd()
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out.mean(), (hr, wr),
+                                                  retain_graph=True),
+                      iters=5, warmup=1)
+    del out
+
+    def peak(route):
+        """Peak MiB above the inputs of one forward and backward."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.autograd.grad(route().mean(), (hr, wr))
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    fused_mib = peak(lambda: cce.cut_cross_entropy(hr, wr, labels))
+    dense_mib = peak(dense_fwd)
+    fused_ms = cuda_ms(lambda: torch.autograd.grad(
+        cce.cut_cross_entropy(hr, wr, labels).mean(), (hr, wr)), iters=5,
+        warmup=1)
+    dense_ms = cuda_ms(lambda: torch.autograd.grad(
+        dense_fwd().mean(), (hr, wr)), iters=5, warmup=1)
+    log(f"  whole loss, forward and backward, N={n} V={v} D={d}: cut "
+        f"cross-entropy {fused_ms:.4f} ms (peak +{fused_mib:.1f} MiB), dense "
+        f"matmul + F.cross_entropy {dense_ms:.4f} ms (+{dense_mib:.1f} MiB)")
+    gemm = 2 * n * v * d                          # one N x V x D product
+    io = 4 * (n * d + v * d)                      # h and w read once
+    rows = []
+    for name, line, ms, plain, lib, ops, nbytes in (
+            ("cce_lse", 75, t_lse, p_lse, lib_fwd, gemm, io + 4 * n),
+            ("cce_dh", 119, t_dh, p_dh, lib_bwd, 2 * gemm,
+             io + 8 * n + 4 * n * d),
+            ("cce_dw", 166, t_dw, p_dw, lib_bwd, 2 * gemm,
+             io + 8 * n + 4 * v * d)):
+        bms, by = bound(nbytes, ops, PEAK_FP32_S)
+        log(f"  {name} N={n} V={v} D={d}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, dense route {'forward' if line == 75 else 'backward'} "
+            f"{lib:.4f} ms; bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.1f} GFLOP fp32)")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "bigdl_tpu_torch/kernels/csrc/"
+                               "cut_cross_entropy.cu",
+                     "replaces": f"bigdl_tpu/kernels/cut_cross_entropy.py:"
+                                 f"{line}",
+                     "max_abs_err": worst[name], "ms": ms, "plain_ms": plain,
+                     "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                     "peak_mib": fused_mib, "library_peak_mib": dense_mib,
+                     "shape": f"N={n} V={v} D={d} fp32"})
+    return rows
 
 
 # ---------------------------------------------------------------- phase 3
@@ -720,6 +903,212 @@ def train_slice(dev):
              "idle_share": idle})
 
 
+# ---------------------------------------------------------------- phase 6
+def pipelined_step_split(lm, x, y, method, slots):
+    """One real train_step of the pipelined LM with CUDA events around
+    its parts: the embedding's forward, the stages' forward and the loss
+    of each microbatch, and the update (each summed over its calls); the
+    backward is the rest of the step (the autograd passes through the
+    loss and the stages, and the embedding's backward). Then the same
+    step under torch.profiler for the kernels by device time. Returns
+    ({part: ms}, device busy ms, slots)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from bigdl_tpu_torch.models import pipelined_lm as plm
+    marks = []
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            marks.append((name, e0, e1))
+            return out
+        return run
+
+    loss_fn, update = lm.loss_fn(), plm.apply_update
+    lm._embed = timed("embedding", lm._embed)
+    lm.pipe._stages = timed("forward", lm.pipe._stages)
+    lm.loss_fn = lambda: timed("loss", loss_fn)
+    plm.apply_update = timed("update", update)
+    try:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        _, slots = lm.train_step(x, y, method=method, slots=slots)
+        end.record()
+        end.synchronize()
+    finally:
+        del lm._embed, lm.pipe._stages, lm.loss_fn
+        plm.apply_update = update
+    parts = dict.fromkeys(("embedding", "forward", "loss", "update"), 0.0)
+    for name, e0, e1 in marks:
+        parts[name] += e0.elapsed_time(e1)
+    total = start.elapsed_time(end)
+    parts["backward"] = total - sum(parts.values())
+    log("  one step, CUDA events (summed over the "
+        f"{lm.pipe.n_microbatches} microbatches): " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in parts.items())
+        + f"; total {total:.2f} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        _, slots = lm.train_step(x, y, method=method, slots=slots)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t) * 1e3
+    events = sorted((e for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA")),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"  profiled step {wall_ms:.2f} ms (the profiler's host overhead "
+        f"included): device busy {busy_ms:.2f} ms; kernels by device time:")
+    for e in events[:10]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d}x  "
+            f"{e.key[:90]}")
+    return parts, busy_ms, slots
+
+
+def pipelined_slice(dev):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.kernels import cut_cross_entropy as cce
+    from bigdl_tpu_torch.kernels.flash_attention import flash_attention
+    from bigdl_tpu_torch.models.pipelined_lm import PipelinedLM
+    from bigdl_tpu_torch.optim.method import Adam, init_update_slots
+
+    def build(fused):
+        return PipelinedLM(GPT2_VOCAB, d_model=GPT2_D, num_heads=GPT2_HEADS,
+                           d_ff=GPT2_FF, num_layers=GPT2_LAYERS,
+                           n_stages=PIPE_STAGES, n_microbatches=PIPE_MICRO,
+                           max_len=TRAIN_SEQ, fused_loss=fused, device=dev)
+
+    def step_peak_mib(model, slots):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = model.train_step(x, y, method=adam, slots=slots)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() / 2**20
+
+    t0 = time.monotonic()
+    r = np.random.RandomState(0)
+    tokens = r.randint(0, GPT2_VOCAB, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    lm = build(True)
+    lm.init(torch.Generator(device=dev).manual_seed(0))
+    initial = {k: v.detach().clone() for k, v in lm.named_parameters()}
+    n_params = sum(p.numel() for p in initial.values())
+    adam = Adam(TRAIN_LR)
+    slots = init_update_slots(adam, lm.param_tree())
+    log(f"  PipelinedLM {n_params} params in {len(initial)} leaves "
+        f"({PIPE_STAGES} stage, {PIPE_MICRO} microbatches of "
+        f"{TRAIN_BATCH // PIPE_MICRO}x{TRAIN_SEQ}), fused_loss, "
+        f"Adam({TRAIN_LR}); set up in {time.monotonic() - t0:.1f} s")
+    counters = (cce.cce_lse, cce.cce_dh, cce.cce_dw, flash_attention)
+    for c in counters:
+        c.launches.reset()
+    losses, times, per_step, emb1 = [], [], set(), None
+    torch.cuda.synchronize()
+    t_run = time.monotonic()
+    for i in range(TRAIN_STEPS):
+        before = [c.launches.value for c in counters]
+        ts = time.perf_counter()
+        loss, slots = lm.train_step(x, y, method=adam, slots=slots)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        per_step.add(tuple(c.launches.value - b
+                           for c, b in zip(counters, before)))
+        losses.append(loss)
+        if i == 0:
+            emb1 = lm.emb.detach().clone()
+    wall = time.monotonic() - t_run
+    counts = {c.__name__: c.launches.value for c in counters}
+    log(f"  {len(losses)} steps in {wall:.2f} s; losses "
+        + " ".join(f"{v:.4f}" for v in losses))
+    want = (PIPE_MICRO, PIPE_MICRO, PIPE_MICRO, 0)
+    log(f"  launches: {counts}; (K3a, K3b, K3c, K2) per step: "
+        f"{sorted(per_step)} (want {want} in every step)")
+    if per_step != {want}:
+        raise SystemExit("the pipelined LM's steps did not run through the "
+                         "kernels as counted")
+    if not all(map(math.isfinite, losses)):
+        raise SystemExit("a pipelined LM loss is not finite")
+    drop = losses[0] - sum(losses[-5:]) / 5
+    log(f"  loss {losses[0]:.4f} -> mean of the last 5 "
+        f"{sum(losses[-5:]) / 5:.4f} (drop {drop:.4f}, want >= 0.5)")
+    if drop < 0.5:
+        raise SystemExit("the pipelined LM's loss did not fall by 0.5")
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"  step time median {med * 1e3:.2f} ms over steps 2-{TRAIN_STEPS} "
+        f"(host clock, the card synchronized at each step), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s; first step "
+        f"{times[0] * 1e3:.2f} ms")
+
+    # the forward path: logits of the trained model, and their dense loss
+    # against the fused loss of the same hidden states
+    with torch.no_grad():
+        xd, yd = lm._tokens(x), lm._tokens(y)
+        logits = lm(xd)
+        dense_now = F.cross_entropy(logits.reshape(-1, GPT2_VOCAB),
+                                    yd.reshape(-1)).item()
+        ok_logits = (tuple(logits.shape) == (TRAIN_BATCH, TRAIN_SEQ,
+                                             GPT2_VOCAB)
+                     and bool(torch.isfinite(logits).all()))
+        del logits
+        lp = {"emb": lm.emb, "ln.weight": lm.ln.weight,
+              "ln.bias": lm.ln.bias}
+        h = lm.pipe(lm._embed(lm.emb, xd))
+        fused_now = sum(lm.loss_fn()(hm, ym, lp).item() for hm, ym in zip(
+            lm.pipe._microbatches(h), lm.pipe._microbatches(yd))) / PIPE_MICRO
+        del h
+    rel_now = abs(fused_now - dense_now) / abs(dense_now)
+    log(f"  trained model: logits {TRAIN_BATCH}x{TRAIN_SEQ}x{GPT2_VOCAB} "
+        f"finite: {ok_logits}; their mean loss {dense_now:.6f} vs the fused "
+        f"loss {fused_now:.6f} (relative {rel_now:.2e}, want <= 1e-5)")
+    if not ok_logits or rel_now > 1e-5:
+        raise SystemExit("the trained pipelined LM's forward is wrong")
+
+    split, busy_ms, slots = pipelined_step_split(lm, x, y, adam, slots)
+    idle = 1 - busy_ms / (med * 1e3)
+    log(f"  device idle share of a step: 1 - {busy_ms:.2f} ms busy "
+        f"(profiled) / {med * 1e3:.2f} ms median step = {idle:.3f}")
+    (_, slots), fused_mib = step_peak_mib(lm, slots)
+    del lm, slots
+    torch.cuda.empty_cache()
+
+    # the first step again from the same weights with the dense loss
+    dense = build(False)
+    for k, v in initial.items():
+        mod, _, leaf = k.rpartition(".")
+        (dense.get_submodule(mod) if mod else dense).set_param(leaf, v)
+    (loss_d, _), dense_mib = step_peak_mib(
+        dense, init_update_slots(adam, dense.param_tree()))
+    rel = abs(loss_d - losses[0]) / abs(losses[0])
+    diff = (dense.emb.detach() - emb1).abs()
+    emb_err = diff.max().item()
+    log(f"  first loss, dense loss: {loss_d:.6f} vs fused {losses[0]:.6f} "
+        f"(relative {rel:.2e}, want <= 1e-5); embedding after one step: "
+        f"max|dense - fused| {emb_err:.3e} (want <= "
+        f"{EMB_TOL_LR * TRAIN_LR:.1e}), {int((diff > 1e-3 * TRAIN_LR).sum())}"
+        f" of {diff.numel()} elements above {1e-3 * TRAIN_LR:.1e}; peak "
+        f"memory of a step: fused loss {fused_mib:.0f} MiB, dense loss "
+        f"{dense_mib:.0f} MiB")
+    if rel > 1e-5:
+        raise SystemExit("the fused loss differs from the dense loss")
+    if emb_err > EMB_TOL_LR * TRAIN_LR:
+        raise SystemExit("the fused step's embedding differs from the "
+                         "dense step's")
+    return ({"cce_lse": counts["cce_lse"], "cce_dh": counts["cce_dh"],
+             "cce_dw": counts["cce_dw"]},
+            {"step_ms_median": med * 1e3,
+             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+             "loss_first": losses[0], "loss_last5": sum(losses[-5:]) / 5,
+             "split_ms": split, "device_busy_ms": busy_ms,
+             "idle_share": idle, "peak_mib_fused": fused_mib,
+             "peak_mib_dense": dense_mib, "emb_max_abs_diff": emb_err})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -748,7 +1137,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     flash = check_flash(dev, gen)
     flash.update(check_flash_backward(dev, gen))
-    record = [flash, check_int8(dev, gen), check_fused_update(dev, gen)]
+    record = [flash, check_int8(dev, gen), check_fused_update(dev, gen),
+              *check_cut_cross_entropy(dev, gen)]
     torch.cuda.empty_cache()
 
     log("phase 3: int8 serving of the 125M LlamaLM")
@@ -765,9 +1155,13 @@ def main() -> int:
     log("phase 5: LM training of the 125M LlamaLM")
     by_path["train"], train = train_slice(dev)
     log("  training " + json.dumps(train))
+    torch.cuda.empty_cache()
+
+    log("phase 6: the pipelined LM at GPT-2-small width, fused loss")
+    by_path["pipelined"], pipelined = pipelined_slice(dev)
+    log("  pipelined " + json.dumps(pipelined))
     for k in record:
-        counts = {path: n[k["name"]] for path, n in by_path.items()
-                  if k["name"] in n}
+        counts = {path: n.get(k["name"], 0) for path, n in by_path.items()}
         k["launches"] = sum(counts.values())
         k["launches_by_path"] = counts
     print(json.dumps({"kernels": record}), flush=True)

@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from bigdl_tpu_torch.kernels import fused_update as fu
+from bigdl_tpu_torch.kernels.cut_cross_entropy import (
+    cce_dh, cce_dh_plain, cce_dw, cce_dw_plain, cce_lse, cce_lse_plain,
+    cut_cross_entropy, cut_cross_entropy_plain)
 from bigdl_tpu_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 from bigdl_tpu_torch.kernels.quantized_matmul import (int8_matmul,
@@ -27,6 +30,13 @@ FLASH_TOL = 2e-5
 # dense plain version: the same fp32 ops on the same inputs (expected bit
 # for bit); the margin covers a GEMM algorithm chosen otherwise
 GRAD_TOL = 1e-4
+
+# cut cross-entropy, kernel against the dense plain version, both fp32:
+# max|kernel - plain| <= CCE_TOL * max|plain|. The sums run in other
+# orders (~1e-6 of the largest value); a TF32 product (10-bit mantissa,
+# ~5e-4 relative per logit) moves dh and dw by ~1e-4 of their largest
+# value and fails it
+CCE_TOL = 1e-5
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +189,69 @@ def test_fused_update_kernel_refuses_what_it_cannot_take(cuda):
         fu.fused_update(kind, hyper, [q], [q], [], 0.1, 1., 1.)
     with pytest.raises(ValueError, match="shapes"):
         fu.fused_update(kind, hyper, [p], [p[:4]], [], 0.1, 1., 1.)
+
+
+def _cce_inputs(cuda, n, v, d, seed=0):
+    """Activations like a LayerNorm's output and a head drawn like the
+    pipelined LM's embedding (normal * d ** -0.5): logits ~ N(0, 1)."""
+    h = _rand(cuda, n, d, seed=seed)
+    w = _rand(cuda, v, d, seed=seed + 1) * d ** -0.5
+    gen = torch.Generator(device=cuda).manual_seed(seed + 2)
+    labels = torch.randint(0, v, (n,), generator=gen, device=cuda)
+    return h, w, labels
+
+
+def _assert_cce_close(got, want):
+    err = (got - want).abs().max().item()
+    assert err <= CCE_TOL * want.abs().max().item(), err
+
+
+CCE_SHAPES = [(2048, 50257, 768),     # the pipelined LM's microbatch
+              (333, 1029, 96), (77, 515, 32),
+              (130, 777, 100),         # D % 4 != 0: 4-byte copies
+              (64, 300, 1000)]         # D > 768: 16 rows a block
+
+
+@pytest.mark.parametrize("n,v,d", CCE_SHAPES)
+def test_cce_kernels_match_plain(cuda, n, v, d):
+    h, w, _ = _cce_inputs(cuda, n, v, d)
+    g = _rand(cuda, n, seed=7)
+    counts = [k.launches.value for k in (cce_lse, cce_dh, cce_dw)]
+    lse = cce_lse(h, w)
+    want_lse = cce_lse_plain(h, w)
+    dh = cce_dh(h, w, want_lse, g)
+    dw = cce_dw(h, w, want_lse, g)
+    torch.cuda.synchronize()
+    assert [k.launches.value for k in (cce_lse, cce_dh, cce_dw)] == [
+        c + 1 for c in counts]
+    _assert_cce_close(lse, want_lse)
+    _assert_cce_close(dh, cce_dh_plain(h, w, want_lse, g))
+    _assert_cce_close(dw, cce_dw_plain(h, w, want_lse, g))
+
+
+@pytest.mark.parametrize("n,v,d", [(2048, 50257, 768), (256, 1000, 96)])
+def test_cut_cross_entropy_gradients_match_plain_autograd(cuda, n, v, d):
+    h, w, labels = _cce_inputs(cuda, n, v, d, seed=3)
+    h.requires_grad_()
+    w.requires_grad_()
+    got = cut_cross_entropy(h, w, labels)
+    want = cut_cross_entropy_plain(h, w, labels)
+    _assert_cce_close(got, want)
+    # the pipelined LM's cotangent: a mean over the rows
+    gh, gw = torch.autograd.grad(got.mean(), (h, w))
+    wh, ww = torch.autograd.grad(want.mean(), (h, w))
+    _assert_cce_close(gh, wh)
+    _assert_cce_close(gw, ww)
+
+
+def test_cce_kernels_refuse_what_they_cannot_take(cuda):
+    h, w, _ = _cce_inputs(cuda, 8, 16, 1025)
+    with pytest.raises(ValueError, match="D <= 1024"):
+        cce_lse(h, w)
+    h, w, _ = _cce_inputs(cuda, 8, 16, 32)
+    with pytest.raises(TypeError, match="fp32"):
+        cce_lse(h.half(), w.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        cce_lse(h, w.t().contiguous().t())
+    with pytest.raises(ValueError, match=r"\(8,\)"):
+        cce_dh(h, w, _rand(cuda, 8), _rand(cuda, 4))
