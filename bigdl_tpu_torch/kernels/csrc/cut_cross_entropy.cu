@@ -11,10 +11,24 @@
 //
 // What bounds them on an H100: at N = 2048, D = 768, V = 50257 a K3a
 // launch does 2 N V D = 158 GFLOP and K3b and K3c twice that each, while
-// the bytes are h and w read once (160 MB) and the outputs written once.
-// At the 67 TFLOP/s of fp32 outside the tensor cores they are bound by
-// their operations: 2.36, 4.72 and 4.72 ms. This first form uses fp32
-// FMAs only (no TF32, wgmma or TMA), so the products keep fp32 accuracy.
+// the bytes are h and w read once (160 MB) and the outputs written once:
+// they are bound by their operations. At fp32 accuracy on the tensor
+// cores (3xTF32, three TF32 products per fp32 product, 494.7 TFLOP/s)
+// that is 0.96, 1.92 and 1.92 ms; with fp32 FMAs outside them (67
+// TFLOP/s), 2.36, 4.72 and 4.72 ms.
+//
+// K3a and K3c use fp32 FMAs (their first form). K3b runs on the tensor
+// cores: its FMA form read two shared-memory words per FMA from a 32-row
+// owner tile and reached 27% of the FMA peak. Now both of its products
+// are mma.sync m16n8k8 TF32 MMAs in the error-compensated split CUTLASS
+// calls OpMultiplyAddFastF32: a = hi + lo with hi = a rounded toward
+// zero to TF32 and lo = the rest rounded to nearest, a b ~ hi hi' +
+// hi lo' + lo hi'. That keeps dh within a few 1e-6 of its fp32 value
+// where a single TF32 product moves it by ~4e-4 (chip_smoke.py and
+// tests/test_torch_kernels.py check both). The three MMAs for one are
+// what holds it back: with one TF32 MMA in their place the kernel takes
+// 3.43 ms at the shape above where it takes 6.08 (tools/dh_breakdown.py,
+// H100 80GB HBM3 at 700 W); wgmma is the step past mma.sync's rate.
 //
 // Design, and what it does about the TPU form:
 //  * The Pallas kernels jnp.pad w to a multiple of the vocab block on
@@ -31,18 +45,38 @@
 //    the chunks in index order, so the result does not depend on how the
 //    blocks were scheduled. K3c has one block per 32-row vocab tile
 //    (1571 at V = 50257), each walking all N rows; it needs no merge.
-//  * One block body serves K3b and K3c: an "owner" tile of 32 rows (h
-//    rows for K3b, w rows for K3c) and a walk over 128-row tiles of the
-//    other matrix. Per walker tile: S = owner . walker^T over D in 32-deep
-//    slices (shared memory, double-buffered by cp.async), P = exp(S - lse)
-//    g into shared memory, then acc += P . walker, the walker's columns
-//    staged 128 at a time (double-buffered). The accumulator (32 x D)
-//    stays in registers for the whole walk: 96 floats a thread at D = 768.
-//  * 256 threads = 8 warps x 32 lanes. A warp owns 4 (K3a: 8) owner rows,
-//    a lane 4 walker columns strided by 32, so the walker reads from
-//    shared memory are conflict-free and the owner reads are broadcasts.
+//  * K3b (cce_dh_kernel): a block owns 32 h rows (16 when D > 768) and
+//    their dh in registers, 2 x 12 MMA tiles a thread at D = 768 (96
+//    floats); the register file, not shared memory, fixes that height.
+//    The h rows stay in shared memory, and a 32-row vocab tile of w sits
+//    there whole (96 KB at D = 768), so w is read once per tile for both
+//    products. Each of the 8 warps owns D / 8 columns: it computes its
+//    share of S = h w^T over those columns, and later dh += P w for those
+//    columns, so it copies (cp.async) and waits for its own columns
+//    only. The eight partial S tiles are summed in warp order, P =
+//    exp(S - lse) g is written split into hi and lo, and as the P w
+//    product finishes each 8 rows of the w tile, the warp starts copying
+//    the next tile's 8 rows into them. The 16-byte chunks of a row are
+//    XOR-swizzled by row so the fragment loads of both products (w read
+//    along D, then across its rows) are free of bank conflicts. ldmatrix
+//    loads the fragments of h, of P and of w along D (four 16-byte rows
+//    of fp32 are the TF32 fragment layout); w across its rows takes
+//    single loads. The h rows are stored pre-split once (hi + lo, exact
+//    in fp32), so their fragments split in two operations; w's split in
+//    four as they load.
+//    The tensor cores' fp32 accumulation truncates, so each tile's
+//    P w product is summed from zero (12 MMAs) and added to the
+//    long-lived dh in fp32: accumulated over a whole vocab chunk in the
+//    MMAs, dh drifted by ~1.6e-4 of its largest value.
+//  * K3c (cce_dw_kernel): an "owner" tile of 32 w rows walks 128-row
+//    tiles of h: S = owner . h^T over D in 32-deep slices (shared memory,
+//    double-buffered by cp.async), P = exp(S - lse) g into shared memory,
+//    then acc += P^T . h, the columns staged 128 at a time
+//    (double-buffered). The accumulator (32 x D) stays in registers: 96
+//    floats a thread at D = 768. 256 threads = 8 warps x 32 lanes; a warp
+//    owns 4 (K3a: 8) owner rows, a lane 4 walker columns strided by 32.
 //  * Sums are fp32 and in a fixed order; exp and log are the accurate
-//    expf/logf (no fast math).
+//    expf/logf (no fast math). Nothing reads PyTorch's TF32 switches.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -301,16 +335,15 @@ __global__ void cce_lse_merge(const float* __restrict__ pm,
   lse[r] = m + logf(fmaxf(s, 1e-30f));
 }
 
-// K3b (DW = false) and K3c (DW = true). Owner rows [o0, o0 + BO) against
-// walker tiles of chunk blockIdx.y; the lse and g of a probability belong
-// to its h row: the owner's for K3b, the walker's for K3c. Writes the
-// (BO x d) accumulator to out + blockIdx.y * n_owner * d.
-template <bool DW, int RPT, int DCH>
+// K3c. Owner w rows [o0, o0 + BO) against h tiles (the walkers); the
+// lse and g of a probability belong to its h row. Writes the (BO x d)
+// accumulator to out.
+template <int RPT, int DCH>
 __global__ void __launch_bounds__(NT, 1)
-cce_grad_kernel(const float* __restrict__ owner,
-                const float* __restrict__ walker,
-                const float* __restrict__ lse, const float* __restrict__ g,
-                float* __restrict__ out, int n_owner, int n_walker, int d) {
+cce_dw_kernel(const float* __restrict__ owner,
+              const float* __restrict__ walker,
+              const float* __restrict__ lse, const float* __restrict__ g,
+              float* __restrict__ out, int n_owner, int n_walker, int d) {
   using T = Tile<RPT>;
   extern __shared__ __align__(16) float smem[];
   float* os = smem;
@@ -320,19 +353,10 @@ cce_grad_kernel(const float* __restrict__ owner,
   const int tid = threadIdx.x, ry = tid / 32, cx = tid % 32;
   const int o0 = blockIdx.x * T::BO;
   const int tiles = (n_walker + BW - 1) / BW;
-  const int t0 = (int)((long long)blockIdx.y * tiles / gridDim.y);
-  const int t1 = (int)((long long)(blockIdx.y + 1) * tiles / gridDim.y);
   const int nks = (d + BK - 1) / BK;
   const int nch = (d + CW - 1) / CW;
   const bool vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(walker) & 15) == 0;
 
-  float lo[RPT], go[RPT];   // K3b: lse and g of the owner rows
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = o0 + ry * RPT + i;
-    lo[i] = (!DW && r < n_owner) ? lse[r] : 0.f;
-    go[i] = (!DW && r < n_owner) ? g[r] : 0.f;
-  }
   float acc[DCH][RPT][4];
 #pragma unroll
   for (int c = 0; c < DCH; ++c)
@@ -341,11 +365,10 @@ cce_grad_kernel(const float* __restrict__ owner,
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[c][i][q] = 0.f;
 
-  if (t0 < t1)
-    load_slice<RPT>(os, bs, owner, walker, o0, n_owner, t0 * BW, n_walker, 0,
-                    d, tid);
+  load_slice<RPT>(os, bs, owner, walker, o0, n_owner, 0, n_walker, 0, d,
+                  tid);
   cp_commit();
-  for (int t = t0; t < t1; ++t) {
+  for (int t = 0; t < tiles; ++t) {
     const int j0 = t * BW;
     float s[RPT][4];
 #pragma unroll
@@ -371,18 +394,12 @@ cce_grad_kernel(const float* __restrict__ owner,
     for (int q = 0; q < 4; ++q) {
       const int j = j0 + cx + 32 * q;
       const bool ok = j < n_walker;
-      const float lw = (DW && ok) ? lse[j] : 0.f;
-      const float gw = (DW && ok) ? g[j] : 0.f;
-      float p[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float l = DW ? lw : lo[i];
-        const float gg = DW ? gw : go[i];
-        p[i] = ok ? expf(s[i][q] - l) * gg : 0.f;
-      }
+      const float l = ok ? lse[j] : 0.f;
+      const float gg = ok ? g[j] : 0.f;
       float* dst = pbuf + (cx + 32 * q) * T::PSTR + ry * RPT;
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) dst[i] = p[i];
+      for (int i = 0; i < RPT; ++i)
+        dst[i] = ok ? expf(s[i][q] - l) * gg : 0.f;
     }
     // acc += P . walker, CW columns at a time; chunk c in buffer c & 1
 #pragma unroll
@@ -391,7 +408,7 @@ cce_grad_kernel(const float* __restrict__ owner,
         if (c + 1 < nch)
           load_chunk(cs + ((c + 1) & 1) * T::CS, walker, j0, n_walker,
                      (c + 1) * CW, d, vec, tid);
-        else if (t + 1 < t1)
+        else if (t + 1 < tiles)
           load_slice<RPT>(os, bs, owner, walker, o0, n_owner, j0 + BW,
                           n_walker, 0, d, tid);
         cp_commit();
@@ -403,7 +420,6 @@ cce_grad_kernel(const float* __restrict__ owner,
     }
   }
   cp_wait<0>();
-  float* o = out + (size_t)blockIdx.y * n_owner * d;
 #pragma unroll
   for (int c = 0; c < DCH; ++c)
 #pragma unroll
@@ -413,10 +429,336 @@ cce_grad_kernel(const float* __restrict__ owner,
       for (int q = 0; q < 4; ++q) {
         const int col = c * CW + cx + 32 * q;
         if (c < nch && r < n_owner && col < d)
-          o[(size_t)r * d + col] = acc[c][i][q];
+          out[(size_t)r * d + col] = acc[c][i][q];
       }
     }
 }
+
+// K3b on the tensor cores (see the head note). The tile geometry: a
+// block owns BO = 16 MT h rows; each of its NW warps owns DW = 8 NTW
+// columns of D, padded to DP = NW DW; a vocab tile is BV rows of w.
+namespace k3b {
+
+constexpr int NW = 8;           // warps a block
+constexpr int NTH = 32 * NW;    // threads a block
+constexpr int BV = 32;          // vocab rows a tile
+constexpr int PS = 32;          // row stride of an S or P tile (BV)
+
+// Index of (r, c) in a [rows][DP] tile of h or w: the 16-byte chunks of
+// a row are XOR-swizzled by f(r), a permutation of r % 8, so that both
+// the reads along a row (fragment rows g, columns t) and across rows
+// (fragment rows t, columns g) touch 32 distinct banks.
+template <int DP>
+__device__ __forceinline__ int at(int r, int c) {
+  const int f = ((r & 3) << 1) | ((r >> 2) & 1);
+  return r * DP + (((c >> 2) ^ f) << 2) + (c & 3);
+}
+
+// Index of (r, c) in a [rows][PS] tile of S or P.
+__device__ __forceinline__ int sat(int r, int c) {
+  return r * PS + (c ^ ((r & 7) << 2));
+}
+
+constexpr uint32_t TF32_MASK = 0xffffe000u;   // sign, exponent, 10 bits
+
+// x rounded to TF32 to nearest (ties away from zero), as fp32 bits.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & TF32_MASK;
+}
+
+// x = hi + lo, both TF32: hi is x rounded toward zero, lo the rest
+// rounded to nearest (CUTLASS's FastF32 split: round_toward_zero big,
+// round_half_ulp_truncate small).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & TF32_MASK;
+  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// x with its lo part pre-rounded, so that split_exact gives the same hi
+// and lo with two operations: hi + lo is exact in fp32 (lo's bits lie
+// within x's 23).
+__device__ __forceinline__ float presplit(float x) {
+  uint32_t hi, lo;
+  split(x, hi, lo);
+  return __fadd_rn(__uint_as_float(hi), __uint_as_float(lo));
+}
+
+__device__ __forceinline__ void split_exact(float x, uint32_t& hi,
+                                            uint32_t& lo) {
+  hi = __float_as_uint(x) & TF32_MASK;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// Four 8 x 4 fp32 matrices from shared memory, each lane giving the
+// address of one 16-byte row (lanes 8i to 8i + 7: matrix i); lane t
+// receives (row t / 4, column t % 4) of each, the TF32 fragment layout.
+__device__ __forceinline__ void ldsm4(const float* row, uint32_t (&r)[4]) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32, a = ah + al and b = bh + bl, al bl dropped; the
+// small terms first.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// One warp's copy: tile rows [r0, r0 + cnt) (global row g0 + r of src,
+// `rows` x d row-major), columns [c0, c0 + DW), into dst; zeros past
+// `rows` and d. `vec`: d % 4 == 0 and src 16-byte aligned.
+template <int DP, int DW>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int g0, int rows, int r0, int cnt,
+                                          int c0, int d, bool vec, int lane) {
+  if (vec) {
+    constexpr int CPR = DW / 4;
+    for (int i = lane; i < cnt * CPR; i += 32) {
+      const int r = r0 + i / CPR, c = c0 + 4 * (i % CPR);
+      const bool ok = g0 + r < rows && c < d;
+      cp16(dst + at<DP>(r, c), ok ? src + (size_t)(g0 + r) * d + c : src, ok);
+    }
+  } else {
+    for (int i = lane; i < cnt * DW; i += 32) {
+      const int r = r0 + i / DW, c = c0 + i % DW;
+      const bool ok = g0 + r < rows && c < d;
+      cp4(dst + at<DP>(r, c), ok ? src + (size_t)(g0 + r) * d + c : src, ok);
+    }
+  }
+}
+
+template <int MT, int NTW>
+struct Geometry {
+  static constexpr int BO = 16 * MT, DW = 8 * NTW, DP = NW * DW;
+  static constexpr int SMEM_BYTES = (BO * DP + BV * DP + NW * BO * PS) * 4;
+};
+
+// Block (row tile x, vocab chunk y): the partial dh of its h rows over
+// the chunk's vocab tiles -> out + y * n * d.
+template <int MT, int NTW>
+__global__ void __launch_bounds__(NTH, 1)
+cce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
+              const float* __restrict__ lse, const float* __restrict__ g,
+              float* __restrict__ out, int n, int v, int d) {
+  using G = Geometry<MT, NTW>;
+  constexpr int BO = G::BO, DW = G::DW, DP = G::DP;
+  extern __shared__ __align__(16) float smem[];
+  float* hs = smem;                // [BO][DP], the block's h rows
+  float* ws = hs + BO * DP;        // [BV][DP], one vocab tile of w
+  float* sp = ws + BV * DP;        // [NW][BO][PS] partial S; then P's hi, lo
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int o0 = blockIdx.x * BO, c0 = warp * DW;
+  // the row and column offsets this lane addresses for ldsm4: in an A
+  // fragment (16 x 8), and in two B fragments (8 + 8 rows x 8)
+  const int ar = (lane & 7) + 8 * ((lane >> 3) & 1), ac = 4 * (lane >> 4);
+  const int br = (lane & 7) + 8 * (lane >> 4), bc = 4 * ((lane >> 3) & 1);
+  const int tiles = (v + BV - 1) / BV;
+  const int t0 = (int)((long long)blockIdx.y * tiles / gridDim.y);
+  const int t1 = (int)((long long)(blockIdx.y + 1) * tiles / gridDim.y);
+  const bool vec = d % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w)) &
+       15) == 0;
+
+  // every warp copies, and later reads, only its own columns
+  load_rows<DP, DW>(hs, h, o0, n, 0, BO, c0, d, vec, lane);
+  if (t0 < t1) load_rows<DP, DW>(ws, w, t0 * BV, v, 0, BV, c0, d, vec, lane);
+  cp_commit();
+  // the h rows serve every tile: store them pre-split once
+  cp_wait<0>();
+  __syncwarp();
+  for (int i = lane; i < BO * DW; i += 32) {
+    float& x = hs[at<DP>(i / DW, c0 + i % DW)];
+    x = presplit(x);
+  }
+  __syncwarp();
+  // this lane's 16-byte copies of an 8-row group of the w tile: shared
+  // offset from the group's first row (the swizzle repeats every 8
+  // rows) and global offset from that row, -1 past d
+  constexpr int GPL = DW / 16;
+  int soff[GPL], goff[GPL];
+#pragma unroll
+  for (int i = 0; i < GPL; ++i) {
+    const int q = lane + 32 * i, rr = q / (DW / 4);
+    const int cc = c0 + 4 * (q % (DW / 4));
+    soff[i] = at<DP>(rr, cc);
+    goff[i] = cc < d ? rr * d + cc : -1;
+  }
+
+  float acc[MT][NTW][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+
+  for (int t = t0; t < t1; ++t) {
+    const int j0 = t * BV;
+    cp_wait<0>();
+    __syncwarp();
+    // this warp's share of S = h . w^T: the sum over its columns
+    float s[MT][BV / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < BV / 8; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s[mt][nt][q] = 0.f;
+#pragma unroll 4
+    for (int ks = 0; ks < NTW; ++ks) {
+      const int k0 = c0 + 8 * ks;
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t x[4];
+        ldsm4(hs + at<DP>(16 * mt + ar, k0 + ac), x);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split_exact(__uint_as_float(x[q]), ah[mt][q], al[mt][q]);
+      }
+#pragma unroll
+      for (int np = 0; np < BV / 16; ++np) {
+        uint32_t y[4];   // b0, b1 of MMA column tile 2 np, then of 2 np + 1
+        ldsm4(ws + at<DP>(16 * np + br, k0 + bc), y);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(__uint_as_float(y[2 * e]), bh0, bl0);
+          split(__uint_as_float(y[2 * e + 1]), bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma3(s[mt][2 * np + e], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    __syncthreads();   // every warp is past its reads of the last P
+    float* part = sp + warp * BO * PS;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < BV / 8; ++nt) {
+        const int r = 16 * mt + gq, c = 8 * nt + 2 * tq;
+        part[sat(r, c)] = s[mt][nt][0];
+        part[sat(r, c + 1)] = s[mt][nt][1];
+        part[sat(r + 8, c)] = s[mt][nt][2];
+        part[sat(r + 8, c + 1)] = s[mt][nt][3];
+      }
+    __syncthreads();
+    // P = exp(S - lse) g, the partial S summed in warp order, stored split
+    // (hi over warp 0's partial, lo over warp 1's: each element is read
+    // and written by one thread); zero past n and v
+#pragma unroll
+    for (int e = threadIdx.x; e < BO * BV; e += NTH) {
+      const int r = e / BV, c = e % BV, i = sat(r, c);
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < NW; ++q) sum += sp[q * BO * PS + i];
+      const int row = o0 + r;
+      const float p =
+          row < n && j0 + c < v ? expf(sum - lse[row]) * g[row] : 0.f;
+      uint32_t hi, lo;
+      split(p, hi, lo);
+      sp[i] = __uint_as_float(hi);
+      sp[BO * PS + i] = __uint_as_float(lo);
+    }
+    __syncthreads();
+    // dh += P . w over the tile's rows, this warp's columns, 4 MMA
+    // columns at a time: their product is summed from zero over the
+    // tile (12 MMAs) and then added to acc in fp32, because the tensor
+    // cores' accumulation truncates (over a whole vocab chunk, ~9000
+    // MMAs, that costs ~1e-4 of dh). As the last group finishes each 8
+    // rows of the tile, the warp starts copying the next tile's into them.
+    const float* ph = sp;
+    const float* pl = sp + BO * PS;
+#pragma unroll
+    for (int ng = 0; ng < NTW; ng += 4) {
+      float tmp[MT][4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) tmp[mt][i][q] = 0.f;
+#pragma unroll 2
+      for (int kb = 0; kb < BV / 8; ++kb) {
+        const int k = 8 * kb + tq;
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          ldsm4(ph + sat(16 * mt + ar, 8 * kb + ac), ah[mt]);
+          ldsm4(pl + sat(16 * mt + ar, 8 * kb + ac), al[mt]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = c0 + 8 * (ng + i) + gq;
+          uint32_t bh0, bl0, bh1, bl1;
+          split(ws[at<DP>(k, col)], bh0, bl0);
+          split(ws[at<DP>(k + 4, col)], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma3(tmp[mt][i], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        }
+        if (ng + 4 == NTW && t + 1 < t1) {
+          __syncwarp();
+          const int r0 = 8 * kb, g0 = j0 + BV + r0;
+          if (vec) {
+            const int lim = (v - g0) * DP;   // rows left, as an offset
+            const float* src = w + (size_t)g0 * d;
+#pragma unroll
+            for (int i = 0; i < GPL; ++i) {
+              const bool ok = goff[i] >= 0 && soff[i] < lim;
+              cp16(ws + r0 * DP + soff[i], ok ? src + goff[i] : w, ok);
+            }
+          } else {
+            load_rows<DP, DW>(ws, w, j0 + BV, v, r0, 8, c0, d, false, lane);
+          }
+        }
+        cp_commit();
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][ng + i][q] += tmp[mt][i][q];
+    }
+  }
+  cp_wait<0>();
+  float* o = out + (size_t)blockIdx.y * n * d;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = o0 + 16 * mt + gq + 8 * half;
+        const int col = c0 + 8 * nt + 2 * tq;
+        if (row < n) {
+          if (col < d) o[(size_t)row * d + col] = acc[mt][nt][2 * half];
+          if (col + 1 < d)
+            o[(size_t)row * d + col + 1] = acc[mt][nt][2 * half + 1];
+        }
+      }
+}
+
+}  // namespace k3b
 
 // K3b, second pass: dh = sum over chunks of the partial dh, chunk order.
 __global__ void cce_sum_chunks(const float* __restrict__ part,
@@ -437,39 +779,37 @@ cudaError_t set_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <bool DW, int RPT, int DCH>
-cudaError_t launch_grad(const float* owner, const float* walker,
-                        const float* lse, const float* g, float* out,
-                        int n_owner, int n_walker, int d, int splits,
-                        cudaStream_t stream) {
-  using T = Tile<RPT>;
-  const int smem = T::GRAD_FLOATS * (int)sizeof(float);
-  auto kernel = cce_grad_kernel<DW, RPT, DCH>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((n_owner + T::BO - 1) / T::BO, splits);
-  kernel<<<grid, NT, smem, stream>>>(owner, walker, lse, g, out, n_owner,
-                                     n_walker, d);
-  return cudaGetLastError();
+template <int MT, int NTW, typename F>
+cudaError_t call_dh(F&& f) {
+  using G = k3b::Geometry<MT, NTW>;
+  return f(k3b::cce_dh_kernel<MT, NTW>, G::BO, G::SMEM_BYTES);
 }
 
-// D <= 256: 4 rows a warp, 2 column chunks; D <= 768: 4 rows, 6 chunks;
-// D <= 1024: 2 rows, 8 chunks (the accumulator stays at <= 96 registers).
-template <bool DW>
-cudaError_t dispatch_grad(const float* owner, const float* walker,
-                          const float* lse, const float* g, float* out,
-                          int n_owner, int n_walker, int d, int splits,
-                          cudaStream_t stream) {
-  if (d <= 256)
-    return launch_grad<DW, 4, 2>(owner, walker, lse, g, out, n_owner,
-                                 n_walker, d, splits, stream);
-  if (d <= 768)
-    return launch_grad<DW, 4, 6>(owner, walker, lse, g, out, n_owner,
-                                 n_walker, d, splits, stream);
-  if (d <= 1024)
-    return launch_grad<DW, 2, 8>(owner, walker, lse, g, out, n_owner,
-                                 n_walker, d, splits, stream);
+// f(kernel, h rows a block, dynamic shared bytes) of the K3b body for d:
+// D <= 256, 512, 768 take 32 rows a block and D / 8 columns a warp (the
+// accumulator is <= 96 registers); D <= 1024 takes 16 rows. Returns
+// cudaErrorInvalidValue past 1024.
+template <typename F>
+cudaError_t with_dh_body(int d, F&& f) {
+  if (d <= 256) return call_dh<2, 4>(f);
+  if (d <= 512) return call_dh<2, 8>(f);
+  if (d <= 768) return call_dh<2, 12>(f);
+  if (d <= 1024) return call_dh<1, 16>(f);
   return cudaErrorInvalidValue;
+}
+
+template <int RPT, int DCH>
+cudaError_t launch_dw(const float* h, const float* w, const float* lse,
+                      const float* g, float* dw, int n, int v, int d,
+                      cudaStream_t stream) {
+  using T = Tile<RPT>;
+  const int smem = T::GRAD_FLOATS * (int)sizeof(float);
+  auto kernel = cce_dw_kernel<RPT, DCH>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((v + T::BO - 1) / T::BO);
+  kernel<<<grid, NT, smem, stream>>>(w, h, lse, g, dw, v, n, d);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -511,14 +851,19 @@ extern "C" int bigdl_cce_dh_f32(const void* h, const void* w,
                                 int splits, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (splits < 1) return (int)cudaErrorInvalidValue;
+  if (d < 1 || splits < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto part = static_cast<float*>(scratch);
-  err = dispatch_grad<false>(static_cast<const float*>(h),
-                             static_cast<const float*>(w),
-                             static_cast<const float*>(lse),
-                             static_cast<const float*>(g), part, n, v, d,
-                             splits, s);
+  err = with_dh_body(d, [&](auto kernel, int rows, int smem) {
+    cudaError_t e = set_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid((n + rows - 1) / rows, splits);
+    kernel<<<grid, k3b::NTH, smem, s>>>(
+        static_cast<const float*>(h), static_cast<const float*>(w),
+        static_cast<const float*>(lse), static_cast<const float*>(g), part,
+        n, v, d);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return (int)err;
   const size_t count = (size_t)n * d;
   const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256
@@ -528,15 +873,39 @@ extern "C" int bigdl_cce_dh_f32(const void* h, const void* w,
   return (int)cudaGetLastError();
 }
 
-// K3c: dw (v, d).
+// What the K3b body for d uses: registers and local (spilled) bytes a
+// thread, dynamic shared memory bytes and h rows a block.
+extern "C" int bigdl_cce_dh_usage(int d, int* regs, int* local_bytes,
+                                  int* smem_bytes, int* rows) {
+  return (int)with_dh_body(d, [&](auto kernel, int r, int smem) {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return e;
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    *smem_bytes = smem;
+    *rows = r;
+    return cudaSuccess;
+  });
+}
+
+// K3c: dw (v, d). D <= 256: 4 rows a warp, 2 column chunks; D <= 768: 4
+// rows, 6 chunks; D <= 1024: 2 rows, 8 chunks (the accumulator stays at
+// <= 96 registers).
 extern "C" int bigdl_cce_dw_f32(const void* h, const void* w,
                                 const void* lse, const void* g, void* dw,
                                 int n, int v, int d, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return (int)dispatch_grad<true>(
-      static_cast<const float*>(w), static_cast<const float*>(h),
-      static_cast<const float*>(lse), static_cast<const float*>(g),
-      static_cast<float*>(dw), v, n, d, 1, static_cast<cudaStream_t>(stream));
+  auto s = static_cast<cudaStream_t>(stream);
+  auto fh = static_cast<const float*>(h);
+  auto fw = static_cast<const float*>(w);
+  auto fl = static_cast<const float*>(lse);
+  auto fg = static_cast<const float*>(g);
+  auto o = static_cast<float*>(dw);
+  if (d <= 256) return (int)launch_dw<4, 2>(fh, fw, fl, fg, o, n, v, d, s);
+  if (d <= 768) return (int)launch_dw<4, 6>(fh, fw, fl, fg, o, n, v, d, s);
+  if (d <= 1024) return (int)launch_dw<2, 8>(fh, fw, fl, fg, o, n, v, d, s);
+  return (int)cudaErrorInvalidValue;
 }

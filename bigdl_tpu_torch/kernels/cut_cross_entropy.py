@@ -5,10 +5,13 @@ the (N, V) logits in device memory.
 `cut_cross_entropy(h, w, labels)` is a `torch.autograd.Function` whose
 forward launches K3a (`cce_lse`, the per-row logsumexp) and whose
 backward launches K3b (`cce_dh`) and K3c (`cce_dw`), the hand-written
-CUDA kernels of `csrc/cut_cross_entropy.cu`. The label terms stay outside
-the kernels, as in the reference: the gather-dot `h . w[labels]` in the
-forward, `dh -= g w[labels]` and the scatter-add `dw[labels] -= g h` in
-the backward.
+CUDA kernels of `csrc/cut_cross_entropy.cu`. K3a and K3c use fp32 FMAs;
+K3b runs its products on the tensor cores in 3xTF32 (each fp32 operand
+split into two TF32 parts, three TF32 products), which keeps fp32
+accuracy (CCE_TOL in the tests) and never reads PyTorch's TF32 flags.
+The label terms stay outside the kernels, as in the reference: the
+gather-dot `h . w[labels]` in the forward, `dh -= g w[labels]` and the
+scatter-add `dw[labels] -= g h` in the backward.
 
 Each kernel wrapper launches its kernel for CUDA tensors, takes its plain
 PyTorch version (`cce_lse_plain`, `cce_dh_plain`, `cce_dw_plain`, which
@@ -35,10 +38,12 @@ from bigdl_tpu_torch.kernels import _native
 BLOCK_N, BLOCK_V = 128, 512
 MAX_D = 1024
 # the kernels' tiles (csrc/cut_cross_entropy.cu): K3a owns 64 rows a
-# block, K3b 32 (16 when D > 768); both walk the vocab in 128-row tiles
-LSE_ROWS, VOCAB_TILE = 64, 128
-# blocks a launch aims for, per SM, when it splits the vocab walk
-LSE_BLOCKS_PER_SM, DH_BLOCKS_PER_SM = 8, 4
+# block and walks the vocab in 128-row tiles; K3b owns 32 rows (16 when
+# D > 768) and walks it in 32-row tiles, one block per SM
+LSE_ROWS, LSE_VOCAB_TILE = 64, 128
+DH_VOCAB_TILE = 32
+# blocks a K3a launch aims for, per SM, when it splits the vocab walk
+LSE_BLOCKS_PER_SM = 8
 
 
 def _probs(h, w, lse, g):
@@ -103,13 +108,25 @@ def _check(h, w, *vectors):
                              f"{tuple(t.shape)}")
 
 
-def _splits(rows_per_block, n, v, blocks_per_sm, device):
-    """How many chunks to cut the vocab walk into so that the launch has
-    about `blocks_per_sm` blocks per SM (at most one chunk per tile)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_tiles = -(-n // rows_per_block)
-    return max(1, min(-(-v // VOCAB_TILE),
-                      -(-blocks_per_sm * sms // row_tiles)))
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _lse_splits(n, v, device):
+    """How many chunks to cut K3a's vocab walk into so that the launch
+    has about LSE_BLOCKS_PER_SM blocks per SM (at most one chunk per
+    tile)."""
+    row_tiles = -(-n // LSE_ROWS)
+    return max(1, min(-(-v // LSE_VOCAB_TILE),
+                      -(-LSE_BLOCKS_PER_SM * _sms(device) // row_tiles)))
+
+
+def dh_splits(n, v, d, sms):
+    """How many chunks to cut K3b's vocab walk into. A block fills an SM
+    (its shared memory), so as many chunks as one wave of `sms` blocks
+    holds whole (at least one, at most one a vocab tile)."""
+    row_tiles = -(-n // (32 if d <= 768 else 16))   # h rows a block
+    return max(1, min(-(-v // DH_VOCAB_TILE), sms // row_tiles))
 
 
 def cce_lse(h, w):
@@ -122,7 +139,7 @@ def cce_lse(h, w):
     lse = torch.empty(n, dtype=torch.float32, device=h.device)
     if n == 0:
         return lse
-    splits = _splits(LSE_ROWS, n, v, LSE_BLOCKS_PER_SM, h.device)
+    splits = _lse_splits(n, v, h.device)
     scratch = torch.empty(2 * splits * n, dtype=torch.float32,
                           device=h.device)
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -144,8 +161,7 @@ def cce_dh(h, w, lse, g):
     dh = torch.empty_like(h)
     if n == 0:
         return dh
-    rows = 32 if d <= 768 else 16
-    splits = _splits(rows, n, v, DH_BLOCKS_PER_SM, h.device)
+    splits = dh_splits(n, v, d, _sms(h.device))
     scratch = torch.empty(splits * n * d, dtype=torch.float32,
                           device=h.device)
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -156,6 +172,17 @@ def cce_dh(h, w, lse, g):
     _native.check(rc, "cce_dh")
     cce_dh.launches.add()
     return dh
+
+
+def dh_kernel_usage(d: int) -> dict:
+    """Registers and local (spilled) bytes a thread, dynamic shared
+    memory bytes and h rows a block, of the K3b body for width d (CUDA
+    only)."""
+    fn = _fn("bigdl_cce_dh_usage", [ctypes.c_int] + [ctypes.c_void_p] * 4)
+    vals = [ctypes.c_int() for _ in range(4)]
+    _native.check(fn(d, *map(ctypes.byref, vals)), "cce_dh usage")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "rows"),
+                    (v.value for v in vals)))
 
 
 def cce_dw(h, w, lse, g):

@@ -2,8 +2,9 @@
 bigdl_tpu/kernels/quantized_matmul.py).
 
 `int8_matmul` launches the hand-written CUDA kernel
-`csrc/quantized_matmul.cu` for CUDA tensors and takes the plain version
-`int8_matmul_plain` for CPU tensors; on any other device it raises.
+`csrc/quantized_matmul.cu` (int8 tensor-core MMAs) for CUDA tensors and
+takes the plain version `int8_matmul_plain` for CPU tensors; on any
+other device it raises.
 Both compute ``(float(xq @ wq) * x_scale) * w_scale`` with the integer
 sum exact, so they agree bit for bit.
 """
@@ -49,6 +50,32 @@ def _lib():
     return fn
 
 
+def _aligned(xq, wt) -> bool:
+    """Whether the cp.async body takes these operands: K a multiple of
+    16 and both 16-byte aligned. Otherwise the byte-loading body runs;
+    both feed the same tensor-core MMAs."""
+    return (xq.shape[1] % 16 == 0 and xq.data_ptr() % 16 == 0
+            and wt.data_ptr() % 16 == 0)
+
+
+def kernel_body(xq, wt) -> str:
+    """Which body `int8_matmul` launches for xq (M, K) and wt (N, K)."""
+    return "mma.sync s8, cp.async ring" if _aligned(xq, wt) else \
+        "mma.sync s8, byte loads"
+
+
+def kernel_usage(xq, wt) -> dict:
+    """Registers and local (spilled) bytes a thread, and dynamic shared
+    memory a block, of the body `int8_matmul` launches for these
+    operands (CUDA only)."""
+    fn = _native.load("quantized_matmul").bigdl_int8_matmul_usage
+    vals = [ctypes.c_int() for _ in range(3)]
+    _native.check(fn(int(_aligned(xq, wt)), *map(ctypes.byref, vals)),
+                  "int8_matmul usage")
+    return dict(zip(("registers", "local_bytes", "shared_bytes"),
+                    (v.value for v in vals)))
+
+
 def int8_matmul(xq, wq, x_scale, w_scale, *, wq_t=None) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 -> (M, N) fp32, dequantized by `x_scale`
     (M, 1) and `w_scale` (1, N) fp32 (scalars broadcast).
@@ -82,9 +109,8 @@ def int8_matmul(xq, wq, x_scale, w_scale, *, wq_t=None) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     if m == 0 or n == 0:
         return out
-    aligned = k % 4 == 0 and xq.data_ptr() % 4 == 0 and wt.data_ptr() % 4 == 0
     rc = _lib()(xq.data_ptr(), wt.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                out.data_ptr(), m, n, k, int(aligned),
+                out.data_ptr(), m, n, k, int(_aligned(xq, wt)),
                 *_native.device_and_stream(xq.device))
     _native.check(rc, "int8_matmul")
     int8_matmul.launches.add()

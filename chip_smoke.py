@@ -49,8 +49,14 @@ Phases, in order; any failed check exits non-zero:
 
 Phase 2 also holds the cut cross-entropy kernels (K3a/K3b/K3c) and the
 autograd Function around them against the dense plain version within
-CCE_TOL, at the pipelined LM's shape and at ragged ones, and shows that a
-TF32 product would fail that tolerance.
+CCE_TOL, at the pipelined LM's shape and at ragged ones, shows that a
+TF32 product would fail that tolerance, and that K3b (3xTF32 on the
+tensor cores) gives the same bits on two launches and with PyTorch's
+TF32 switch on. The int8 GEMM (K4, int8 tensor-core MMAs) is also held
+bit for bit at ragged M and N, at K % 16 != 0 and on an unaligned
+operand. For K4 and K3b it prints the body launched and its registers
+and shared memory; an fp32 product kernel's bound is its operations as
+3xTF32 on the tensor cores, with the fp32-FMA figure beside it.
 
 The last lines are the kernel record (one JSON object), the card line,
 and `{"ok": true, "device": {...}}`. Exits non-zero without printing a
@@ -70,9 +76,13 @@ ROOT = Path(__file__).resolve().parent
 KERNELS = ("flash_attention", "quantized_matmul", "fused_update",
            "cut_cross_entropy")
 # published H100 SXM peaks (dense): HBM bytes/s, fp32 FLOP/s outside the
-# tensor cores, int8 tensor-core OP/s
+# tensor cores, TF32 and int8 tensor-core rates. An fp32 product at fp32
+# accuracy costs at least three TF32 products (3xTF32: hi*hi + hi*lo +
+# lo*hi), so the fp32 product kernels' operations bound is
+# 3 * ops / PEAK_TF32_S; the fp32-FMA figure is printed beside it
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_TF32_S = 494.7e12
 PEAK_INT8_S = 1979e12
 # fp32 attention, kernel vs dense plain version: both sum in fp32 in
 # different orders (online vs one-pass softmax); 2e-5 abs + 2e-5 rel is
@@ -132,6 +142,14 @@ def bound(nbytes, ops, peak_ops):
                                         else "operations")
 
 
+def fp32_bound(nbytes, flops):
+    """(bound ms, by, the fp32-FMA bound ms) of an fp32 product kernel:
+    its operations at fp32 accuracy on the tensor cores (3xTF32), and
+    the same work on the FMA units for comparison."""
+    bms, by = bound(nbytes, 3 * flops, PEAK_TF32_S)
+    return bms, by, bound(nbytes, flops, PEAK_FP32_S)[0]
+
+
 # ---------------------------------------------------------------- phase 2
 def check_flash(dev, gen):
     import torch
@@ -163,10 +181,11 @@ def check_flash(dev, gen):
     b, h, t, d = q.shape
     nbytes = 4 * q.numel() * 4                      # q, k, v, o in fp32
     ops = b * h * (t * (t + 1) // 2) * 4 * d        # visible pairs x 4d
-    bms, by = bound(nbytes, ops, PEAK_FP32_S)
+    bms, by, fma_ms = fp32_bound(nbytes, ops)
     log(f"  flash_attention B={b} H={h} T={t} d={d} causal: kernel {ms:.4f} "
         f"ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms; bound {bms:.4f} ms "
-        f"({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP fp32)")
+        f"({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP fp32 as "
+        f"3xTF32; on fp32 FMAs {fma_ms:.4f} ms)")
     return {"name": "flash_attention", "route": "cuda",
             "source": "bigdl_tpu_torch/kernels/csrc/flash_attention.cu",
             "replaces": "bigdl_tpu/kernels/flash_attention.py:156",
@@ -177,12 +196,15 @@ def check_flash(dev, gen):
 
 def check_int8(dev, gen):
     import torch
-    from bigdl_tpu_torch.kernels.quantized_matmul import (int8_matmul,
-                                                          int8_matmul_plain)
+    from bigdl_tpu_torch.kernels.quantized_matmul import (
+        int8_matmul, int8_matmul_plain, kernel_body, kernel_usage)
 
-    def case(m, k, n):
-        xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
-                           dtype=torch.int8)
+    def case(m, k, n, offset=0):
+        """Operands of an (m, k) @ (k, n) product; with `offset`, xq is a
+        contiguous view `offset` bytes into its storage (not 16-byte
+        aligned)."""
+        xq = torch.randint(-127, 128, (m * k + offset,), generator=gen,
+                           device=dev, dtype=torch.int8)[offset:].view(m, k)
         wq = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
                            dtype=torch.int8)
         sx = torch.rand(m, 1, generator=gen, device=dev) / 100 + 1e-3
@@ -191,15 +213,20 @@ def check_int8(dev, gen):
 
     m = MAX_BATCH * SEQ
     block = [case(m, D, D_FF), case(m, D, D_FF), case(m, D_FF, D)]
+    # ragged: M, N past a tile edge; K % 16 != 0; an unaligned xq
+    ragged = [case(70, 96, 50), case(33, 42, 19), case(4095, D, D_FF - 1),
+              case(257, 40, 129), case(300, D, 200, offset=1)]
     worst = 0.0
-    for xq, wq, wt, sx, sw in block + [case(70, 96, 50), case(33, 42, 19)]:
+    for xq, wq, wt, sx, sw in block + ragged:
         got = int8_matmul(xq, wq, sx, sw, wq_t=wt)
         want = int8_matmul_plain(xq, wq, sx, sw)
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         err = (got - want).abs().max().item()
-        log(f"  int8_matmul M={xq.shape[0]} K={xq.shape[1]} N={wq.shape[1]}: "
-            f"bitwise equal to plain: {same} (max diff {err:.3e})")
+        log(f"  int8_matmul M={xq.shape[0]} K={xq.shape[1]} N={wq.shape[1]}"
+            f"{' (xq 1 byte off alignment)' if xq.data_ptr() % 16 else ''}"
+            f" [{kernel_body(xq, wt)}]: bitwise equal to plain: {same} "
+            f"(max diff {err:.3e})")
         if not same:
             raise SystemExit("int8_matmul is not bitwise equal to its plain "
                              "version")
@@ -216,14 +243,20 @@ def check_int8(dev, gen):
                  + 4 * x.shape[0] * w.shape[1] for x, w, *_ in block)
     ops = sum(2 * x.shape[0] * x.shape[1] * w.shape[1] for x, w, *_ in block)
     bms, by = bound(nbytes, ops, PEAK_INT8_S)
+    body = kernel_body(block[0][0], block[0][2])
+    usage = kernel_usage(block[0][0], block[0][2])
     log(f"  int8_matmul gate+up+down M={m}: kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, _int_mm {lib:.4f} ms; bound {bms:.4f} ms ({by}: "
-        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G int8 ops)")
+        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G int8 ops); body at the "
+        f"serving shapes: {body}, {usage['registers']} registers and "
+        f"{usage['local_bytes']} B local a thread, {usage['shared_bytes']} B "
+        f"shared a block")
     return {"name": "int8_matmul", "route": "cuda",
             "source": "bigdl_tpu_torch/kernels/csrc/quantized_matmul.cu",
             "replaces": "bigdl_tpu/kernels/quantized_matmul.py:119",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "body": body, "registers": usage["registers"],
             "shape": f"gate+up+down of one block: M={m}, "
                      f"KxN={D}x{D_FF},{D}x{D_FF},{D_FF}x{D}"}
 
@@ -418,7 +451,9 @@ def check_cut_cross_entropy(dev, gen):
 
     worst = {"cce_lse": 0.0, "cce_dh": 0.0, "cce_dw": 0.0}
     n_path = TRAIN_BATCH // PIPE_MICRO * TRAIN_SEQ
-    shapes = [(n_path, GPT2_VOCAB, GPT2_D), (333, 1029, 96), (130, 777, 100)]
+    # the path's shape, N past K3b's 32-row tile, and ragged small ones
+    shapes = [(n_path, GPT2_VOCAB, GPT2_D), (n_path - 1, GPT2_VOCAB, GPT2_D),
+              (333, 1029, 96), (130, 777, 100)]
     for n, v, d in shapes:
         h, w, labels = inputs(n, v, d)
         g = torch.full((n,), 1.0 / n, device=dev)
@@ -473,6 +508,25 @@ def check_cut_cross_entropy(dev, gen):
         raise SystemExit("CCE_TOL would pass a TF32 product; tighten it")
     del exact, tf32
 
+    # K3b's chunk merge is in index order and the kernel never reads the
+    # TF32 switch: two launches, and one with the switch on, agree bit
+    # for bit
+    dh1 = cce.cce_dh(h, w, lse_p, g)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        dh_flag = cce.cce_dh(h, w, lse_p, g)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dh2 = cce.cce_dh(h, w, lse_p, g)
+    torch.cuda.synchronize()
+    same = torch.equal(dh1, dh2) and torch.equal(dh1, dh_flag)
+    log(f"  cce_dh at the path's shape: two launches and one with "
+        f"allow_tf32 on bitwise equal: {same}")
+    if not same:
+        raise SystemExit("cce_dh is not deterministic or reads the TF32 "
+                         "switch")
+    del dh1, dh2, dh_flag
+
     # timing at the path's shape
     n, v, d = n_path, GPT2_VOCAB, GPT2_D
     t_lse = cuda_ms(lambda: cce.cce_lse(h, w), iters=10)
@@ -522,11 +576,12 @@ def check_cut_cross_entropy(dev, gen):
              io + 8 * n + 4 * n * d),
             ("cce_dw", 166, t_dw, p_dw, lib_bwd, 2 * gemm,
              io + 8 * n + 4 * v * d)):
-        bms, by = bound(nbytes, ops, PEAK_FP32_S)
+        bms, by, fma_ms = fp32_bound(nbytes, ops)
         log(f"  {name} N={n} V={v} D={d}: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, dense route {'forward' if line == 75 else 'backward'} "
             f"{lib:.4f} ms; bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
-            f"{ops / 1e9:.1f} GFLOP fp32)")
+            f"{ops / 1e9:.1f} GFLOP fp32 as 3xTF32; on fp32 FMAs "
+            f"{fma_ms:.4f} ms)")
         rows.append({"name": name, "route": "cuda",
                      "source": "bigdl_tpu_torch/kernels/csrc/"
                                "cut_cross_entropy.cu",
@@ -536,6 +591,14 @@ def check_cut_cross_entropy(dev, gen):
                      "bound_ms": bms, "bound_by": by, "library_ms": lib,
                      "peak_mib": fused_mib, "library_peak_mib": dense_mib,
                      "shape": f"N={n} V={v} D={d} fp32"})
+    usage = cce.dh_kernel_usage(d)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    body = (f"3xTF32 mma.sync m16n8k8, {usage['rows']} h rows a block, "
+            f"{cce.dh_splits(n, v, d, sms)} vocab chunks")
+    log(f"  cce_dh body at the path's shape: {body}; {usage['registers']} "
+        f"registers and {usage['local_bytes']} B local a thread, "
+        f"{usage['shared_bytes']} B shared a block")
+    rows[1].update(body=body, registers=usage["registers"])
     return rows
 
 

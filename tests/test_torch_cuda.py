@@ -13,11 +13,11 @@ import torch
 from bigdl_tpu_torch.kernels import fused_update as fu
 from bigdl_tpu_torch.kernels.cut_cross_entropy import (
     cce_dh, cce_dh_plain, cce_dw, cce_dw_plain, cce_lse, cce_lse_plain,
-    cut_cross_entropy, cut_cross_entropy_plain)
+    cut_cross_entropy, cut_cross_entropy_plain, dh_kernel_usage)
 from bigdl_tpu_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-from bigdl_tpu_torch.kernels.quantized_matmul import (int8_matmul,
-                                                      int8_matmul_plain)
+from bigdl_tpu_torch.kernels.quantized_matmul import (
+    int8_matmul, int8_matmul_plain, kernel_body, kernel_usage)
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.quantized import QuantizedLinear
 from bigdl_tpu_torch.optim import method as pm
@@ -101,6 +101,60 @@ def test_int8_kernel_bitwise_equals_plain(cuda, m, k, n):
     # scalar scales and the per-call transpose give the same numbers
     assert torch.equal(int8_matmul(xq, wq, 0.02, 0.01),
                        int8_matmul_plain(xq, wq, 0.02, 0.01))
+
+
+def _int8_operands(cuda, m, k, n, offset=0, seed=0):
+    """(xq, wq, wq_t, sx, sw); with `offset`, xq is a contiguous view
+    `offset` bytes into its storage (its data pointer not 16-byte
+    aligned)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xq = torch.randint(-127, 128, (m * k + offset,), generator=g,
+                       device=cuda, dtype=torch.int8)[offset:].view(m, k)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                       dtype=torch.int8)
+    sx = torch.rand(m, 1, generator=g, device=cuda) / 100 + 1e-3
+    sw = torch.rand(1, n, generator=g, device=cuda) / 100 + 1e-3
+    return xq, wq, wq.t().contiguous(), sx, sw
+
+
+@pytest.mark.parametrize("m,k,n,offset,body", [
+    (4096, 768, 3072, 0, "cp.async"),      # serving: gate and up
+    (4096, 3072, 768, 0, "cp.async"),      # serving: down
+    (4095, 768, 3071, 0, "cp.async"),      # M, N not tile multiples
+    (257, 40, 129, 0, "byte loads"),       # K % 16 != 0
+    (64, 776, 96, 0, "byte loads"),        # K % 16 == 8
+    (300, 768, 200, 1, "byte loads"),      # xq 1 byte off alignment
+    (300, 768, 200, 768, "cp.async"),      # one row in: still aligned
+])
+def test_int8_tensor_core_bodies_bitwise_equal_plain(cuda, m, k, n, offset,
+                                                     body):
+    """K4's two bodies (cp.async ring; byte loads) are picked by shape and
+    alignment, never by failure, and both are bit for bit the plain
+    version; the serving shapes take the cp.async body."""
+    xq, wq, wt, sx, sw = _int8_operands(cuda, m, k, n, offset, seed=m + n)
+    assert body in kernel_body(xq, wt)
+    n0 = int8_matmul.launches.value
+    got = int8_matmul(xq, wq, sx, sw, wq_t=wt)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches.value == n0 + 1
+    assert torch.equal(got, int8_matmul_plain(xq, wq, sx, sw))
+
+
+def test_int8_kernel_row_slice_operand(cuda):
+    """A contiguous row slice of a K % 16 != 0 matrix: its pointer is
+    K bytes into the storage."""
+    xq, wq, wt, sx, sw = _int8_operands(cuda, 65, 42, 33, seed=3)
+    xs, ss = xq[1:], sx[1:]
+    assert xs.is_contiguous() and xs.data_ptr() % 16
+    got = int8_matmul(xs, wq, ss, sw, wq_t=wt)
+    assert torch.equal(got, int8_matmul_plain(xs, wq, ss, sw))
+
+
+def test_int8_kernel_usage(cuda):
+    xq, _, wt, _, _ = _int8_operands(cuda, 128, 768, 128)
+    use = kernel_usage(xq, wt)
+    assert use["local_bytes"] == 0 and 0 < use["registers"] <= 128
+    assert use["shared_bytes"] <= 227 * 1024
 
 
 def test_quantized_linear_runs_the_kernel(cuda):
@@ -227,6 +281,48 @@ def test_cce_kernels_match_plain(cuda, n, v, d):
     _assert_cce_close(lse, want_lse)
     _assert_cce_close(dh, cce_dh_plain(h, w, want_lse, g))
     _assert_cce_close(dw, cce_dw_plain(h, w, want_lse, g))
+
+
+@pytest.mark.parametrize("n,v,d", CCE_SHAPES + [(2047, 50257, 768)])
+def test_cce_dh_tensor_core_matches_plain(cuda, n, v, d):
+    """K3b (3xTF32 on the tensor cores) within CCE_TOL of the fp32 plain
+    version, at every shape and at an N that is not a multiple of its
+    32-row tile."""
+    h, w, _ = _cce_inputs(cuda, n, v, d, seed=11)
+    g = _rand(cuda, n, seed=12)
+    lse = cce_lse_plain(h, w)
+    n0 = cce_dh.launches.value
+    got = cce_dh(h, w, lse, g)
+    torch.cuda.synchronize()
+    assert cce_dh.launches.value == n0 + 1
+    _assert_cce_close(got, cce_dh_plain(h, w, lse, g))
+
+
+@pytest.mark.parametrize("n,v,d", [(2048, 50257, 768), (333, 1029, 96)])
+def test_cce_dh_is_deterministic_and_ignores_the_tf32_switch(cuda, n, v, d):
+    """The chunks merge in index order, so two launches give the same
+    bits; the kernel picks 3xTF32 itself and never reads PyTorch's TF32
+    switch."""
+    h, w, _ = _cce_inputs(cuda, n, v, d, seed=21)
+    g = _rand(cuda, n, seed=22)
+    lse = cce_lse_plain(h, w)
+    first = cce_dh(h, w, lse, g)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        flag_on = cce_dh(h, w, lse, g)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    again = cce_dh(h, w, lse, g)
+    assert torch.equal(first, again)
+    assert torch.equal(first, flag_on)
+
+
+@pytest.mark.parametrize("d,rows", [(96, 32), (512, 32), (768, 32),
+                                    (1000, 16)])
+def test_cce_dh_kernel_usage(cuda, d, rows):
+    use = dh_kernel_usage(d)
+    assert use["rows"] == rows and use["local_bytes"] == 0
+    assert use["shared_bytes"] <= 227 * 1024
 
 
 @pytest.mark.parametrize("n,v,d", [(2048, 50257, 768), (256, 1000, 96)])

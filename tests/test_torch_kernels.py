@@ -149,3 +149,82 @@ def test_int8_cpu_takes_plain_path_without_launch():
         int8_matmul(t(xq).float(), t(wq), t(sx), t(sw))
     with pytest.raises(ValueError, match=r"\(M, K\) @ \(K, N\)"):
         int8_matmul(t(xq), t(wq).T.contiguous(), t(sx), t(sw))
+
+
+# ----------------------------------------------- cut cross-entropy's dh
+# The CUDA dh kernel (K3b) runs both of its fp32 products on the tensor
+# cores in 3xTF32: each operand a = hi + lo, both TF32, and a b ~ hi hi'
+# + hi lo' + lo hi'. The kernel splits as CUTLASS's FastF32 does (hi =
+# a rounded toward zero, lo = a - hi rounded to nearest); the split with
+# hi rounded to nearest is the textbook one. This emulates both splits on
+# the CPU to pin why the split meets the tolerance the card tests hold
+# the kernel to, and why a single TF32 product does not. The sums here
+# are float64: the tensor cores' truncating fp32 accumulation adds its
+# own error on the card (chip_smoke.py reads ~2.4e-06 of dh's largest
+# value there). It does not stand in for the card test.
+CCE_TOL = 1e-5     # tests/test_torch_cuda.py and chip_smoke.py
+TF32_MASK = ~0x1FFF   # sign, exponent and 10 mantissa bits of an fp32
+
+
+def _tf32(x):
+    """x rounded to TF32 on its fp32 bit pattern: 10 mantissa bits kept,
+    to nearest (ties away from zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & TF32_MASK).view(torch.float32)
+
+
+def _tf32_toward_zero(x):
+    """x cut to TF32 toward zero: its 13 low mantissa bits cleared."""
+    return (x.contiguous().view(torch.int32) & TF32_MASK).view(torch.float32)
+
+
+def _mm_3xtf32(a, b, hi=_tf32):
+    """a @ b with both operands split into TF32 parts, hi by `hi` and lo
+    = a - hi rounded to nearest; the three products summed in float64,
+    rounded to fp32."""
+    ah, bh = hi(a), hi(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return sum(p.double() @ q.double() for p, q in
+               ((ah, bh), (ah, bl), (al, bh))).float()
+
+
+def _mm_tf32(a, b):
+    return (_tf32(a).double() @ _tf32(b).double()).float()
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1 + 2.0 ** -10, 1 + 2.0 ** -11, 1 + 2.0 ** -12,
+                      -(1 + 3 * 2.0 ** -11), 3.0e-30])
+    got = _tf32(x)
+    assert got[:4].tolist() == [1.0, 1 + 2.0 ** -10, 1 + 2.0 ** -10, 1.0]
+    assert got[4].item() == -(1 + 2 * 2.0 ** -10)
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    cut = _tf32_toward_zero(x)
+    assert cut[:4].tolist() == [1.0, 1 + 2.0 ** -10, 1.0, 1.0]
+    assert cut[4].item() == -(1 + 2.0 ** -10)
+
+
+@pytest.mark.parametrize("hi", [_tf32, _tf32_toward_zero],
+                         ids=["hi_nearest", "hi_toward_zero"])
+def test_cce_dh_3xtf32_meets_the_tolerance_and_tf32_misses_it(hi):
+    from bigdl_tpu_torch.kernels.cut_cross_entropy import (cce_dh_plain,
+                                                           cce_lse_plain)
+    n, v, d = 256, 4096, 768
+    r = np.random.RandomState(0)
+    h = torch.from_numpy(r.randn(n, d).astype(np.float32))
+    w = torch.from_numpy((r.randn(v, d) / np.sqrt(d)).astype(np.float32))
+    g = torch.from_numpy(r.randn(n).astype(np.float32))
+    lse = cce_lse_plain(h, w)
+    want = cce_dh_plain(h, w, lse, g)
+
+    def dh(mm):
+        p = torch.exp(mm(h, w.T) - lse[:, None]) * g[:, None]
+        return mm(p, w)
+
+    def rel(x):
+        return ((x - want).abs().max() / want.abs().max()).item()
+    err3 = rel(dh(lambda a, b: _mm_3xtf32(a, b, hi)))
+    err1 = rel(dh(_mm_tf32))
+    print(f"dh of max: 3xTF32 {err3:.3e}, single TF32 {err1:.3e}")
+    assert err3 <= CCE_TOL / 10, err3
+    assert err1 > CCE_TOL * 10, err1
