@@ -6,8 +6,9 @@ compiled by nvcc into its own shared library, loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -shared -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edit
-rebuilds and an unchanged source reuses what is on disk. Builds run on
+The library name carries a hash of the source, of the shared headers
+`csrc/*.cuh` and of the flags, so an edit rebuilds and an unchanged source
+reuses what is on disk. Builds run on
 first use (never at import: the CPU tests import every module), and
 `build()` starts one nvcc per source at once, so a cold start costs the
 slowest compile, not the sum. The build directory is in .gitignore.
@@ -68,6 +69,7 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -17,18 +17,18 @@
 // that is 0.96, 1.92 and 1.92 ms; with fp32 FMAs outside them (67
 // TFLOP/s), 2.36, 4.72 and 4.72 ms.
 //
-// K3a and K3c use fp32 FMAs (their first form). K3b runs on the tensor
-// cores: its FMA form read two shared-memory words per FMA from a 32-row
-// owner tile and reached 27% of the FMA peak. Now both of its products
-// are mma.sync m16n8k8 TF32 MMAs in the error-compensated split CUTLASS
+// K3a uses fp32 FMAs. K3b and K3c run on the tensor cores, one body
+// with the roles of h and w swapped: both products of each are
+// mma.sync m16n8k8 TF32 MMAs in the error-compensated split CUTLASS
 // calls OpMultiplyAddFastF32: a = hi + lo with hi = a rounded toward
 // zero to TF32 and lo = the rest rounded to nearest, a b ~ hi hi' +
-// hi lo' + lo hi'. That keeps dh within a few 1e-6 of its fp32 value
-// where a single TF32 product moves it by ~4e-4 (chip_smoke.py and
-// tests/test_torch_kernels.py check both). The three MMAs for one are
-// what holds it back: with one TF32 MMA in their place the kernel takes
-// 3.43 ms at the shape above where it takes 6.08 (tools/dh_breakdown.py,
-// H100 80GB HBM3 at 700 W); wgmma is the step past mma.sync's rate.
+// hi lo' + lo hi'. That keeps dh and dw within a few 1e-6 of their
+// fp32 values where a single TF32 product moves them by ~4e-4
+// (chip_smoke.py and tests/test_torch_kernels.py check both). The three
+// MMAs for one are what holds them back: with one TF32 MMA in their
+// place dh and dw take 3.49 and 3.63 ms at the shape above where they
+// take 6.14 and 6.02 (tools/dh_breakdown.py, H100 80GB HBM3 at 700 W);
+// wgmma is the step past mma.sync's rate.
 //
 // Design, and what it does about the TPU form:
 //  * The Pallas kernels jnp.pad w to a multiple of the vocab block on
@@ -44,8 +44,10 @@
 //    partial (max, sum) or partial dh, and a second small kernel merges
 //    the chunks in index order, so the result does not depend on how the
 //    blocks were scheduled. K3c has one block per 32-row vocab tile
-//    (1571 at V = 50257), each walking all N rows; it needs no merge.
-//  * K3b (cce_dh_kernel): a block owns 32 h rows (16 when D > 768) and
+//    (1571 at V = 50257, 12 waves of one block per SM), each walking all
+//    N rows in order; it needs no merge.
+//  * K3b (cce_grad_kernel, as owner h and walker w): a block owns 32 h
+//    rows (16 when D > 768) and
 //    their dh in registers, 2 x 12 MMA tiles a thread at D = 768 (96
 //    floats); the register file, not shared memory, fixes that height.
 //    The h rows stay in shared memory, and a 32-row vocab tile of w sits
@@ -67,14 +69,16 @@
 //    The tensor cores' fp32 accumulation truncates, so each tile's
 //    P w product is summed from zero (12 MMAs) and added to the
 //    long-lived dh in fp32: accumulated over a whole vocab chunk in the
-//    MMAs, dh drifted by ~1.6e-4 of its largest value.
-//  * K3c (cce_dw_kernel): an "owner" tile of 32 w rows walks 128-row
-//    tiles of h: S = owner . h^T over D in 32-deep slices (shared memory,
-//    double-buffered by cp.async), P = exp(S - lse) g into shared memory,
-//    then acc += P^T . h, the columns staged 128 at a time
-//    (double-buffered). The accumulator (32 x D) stays in registers: 96
-//    floats a thread at D = 768. 256 threads = 8 warps x 32 lanes; a warp
-//    owns 4 (K3a: 8) owner rows, a lane 4 walker columns strided by 32.
+//    MMAs, dh drifted by ~1.6e-4 of its largest value. Each warp's share
+//    of S is likewise summed 32 columns of D at a time and added in fp32.
+//  * K3c (the same body, as owner w and walker h): a block owns 32 w
+//    rows and their dw, walks 32-row tiles of h, and takes lse and g of
+//    each probability from its walker (h) row instead of its owner row.
+//    Everything else, per-tile promotion included, is K3b's.
+//  * K3a: an owner tile of 64 h rows walks 128-row tiles of w: S over D
+//    in 32-deep slices (shared memory, double-buffered by cp.async),
+//    256 threads = 8 warps x 32 lanes; a warp owns 8 owner rows, a lane
+//    4 walker columns strided by 32.
 //  * Sums are fp32 and in a fixed order; exp and log are the accurate
 //    expf/logf (no fast math). Nothing reads PyTorch's TF32 switches.
 
@@ -83,13 +87,14 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int NT = 256;       // threads per block
 constexpr int RG = 8;         // warps = owner row groups
 constexpr int BW = 128;       // walker rows per tile (4 per lane)
 constexpr int BK = 32;        // depth of one staged slice of D
-constexpr int CW = 128;       // accumulator columns staged at a time
 constexpr int BSTR = BW + 1;  // walker slice stride: conflict-free copies
 constexpr float NEG_INF = -1e30f;
 
@@ -99,50 +104,16 @@ struct Tile {
   static constexpr int OSTR = BO + 4;           // owner slice stride
   static constexpr int OS = BK * OSTR;          // owner slice, [k][row]
   static constexpr int BS = BK * BSTR;          // walker slice, [k][row]
-  static constexpr int PSTR = BO + 4;
-  static constexpr int PS = BW * PSTR;          // probabilities, [j][row]
-  static constexpr int CS = BW * CW;            // walker columns, [j][col]
   static constexpr int LSE_FLOATS = 2 * OS + 2 * BS;
-  static constexpr int GRAD_FLOATS = 2 * OS + 2 * BS + PS + 2 * CS;
 };
-
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <int RPT>
 __device__ __forceinline__ void load_rows(const float* p, float (&a)[RPT]) {
-  if constexpr (RPT % 4 == 0) {
+  static_assert(RPT % 4 == 0, "whole float4 loads");
 #pragma unroll
-    for (int i = 0; i < RPT; i += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(p + i);
-      a[i] = x.x; a[i + 1] = x.y; a[i + 2] = x.z; a[i + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < RPT; i += 2) {
-      const float2 x = *reinterpret_cast<const float2*>(p + i);
-      a[i] = x.x; a[i + 1] = x.y;
-    }
+  for (int i = 0; i < RPT; i += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p + i);
+    a[i] = x.x; a[i + 1] = x.y; a[i + 2] = x.z; a[i + 3] = x.w;
   }
 }
 
@@ -172,30 +143,6 @@ __device__ __forceinline__ void load_slice(float* os, float* bs,
   }
 }
 
-// Copy columns [c0, c0 + CW) of walker rows [j0, j0 + BW) to cs[j][col];
-// zeros past n_walker or d. `vec`: d % 4 == 0 and walker 16-byte aligned,
-// so a float4 is wholly inside or wholly past the row.
-__device__ __forceinline__ void load_chunk(float* cs, const float* walker,
-                                           int j0, int n_walker, int c0,
-                                           int d, bool vec, int tid) {
-  if (vec) {
-#pragma unroll
-    for (int idx = tid; idx < BW * CW / 4; idx += NT) {
-      const int j = idx / (CW / 4), c = (idx % (CW / 4)) * 4;
-      const int gj = j0 + j, gc = c0 + c;
-      const bool ok = gj < n_walker && gc < d;
-      cp16(cs + j * CW + c, ok ? walker + (size_t)gj * d + gc : walker, ok);
-    }
-  } else {
-    for (int idx = tid; idx < BW * CW; idx += NT) {
-      const int j = idx / CW, c = idx % CW;
-      const int gj = j0 + j, gc = c0 + c;
-      const bool ok = gj < n_walker && gc < d;
-      cp4(cs + j * CW + c, ok ? walker + (size_t)gj * d + gc : walker, ok);
-    }
-  }
-}
-
 // S[i][q] += sum_k owner[row i] [k] * walker[col q] [k] over one slice.
 template <int RPT>
 __device__ __forceinline__ void mma_slice(const float* os, const float* bs,
@@ -213,26 +160,6 @@ __device__ __forceinline__ void mma_slice(const float* os, const float* bs,
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int q = 0; q < 4; ++q) s[i][q] = fmaf(a[i], b[q], s[i][q]);
-  }
-}
-
-// acc[i][q] += sum_j P[j][row i] * walker[j][column q] over one chunk.
-template <int RPT>
-__device__ __forceinline__ void pw_chunk(const float* ps, const float* cs,
-                                         float (&acc)[RPT][4], int ry,
-                                         int cx) {
-  using T = Tile<RPT>;
-#pragma unroll 4
-  for (int j = 0; j < BW; ++j) {
-    float p[RPT];
-    load_rows<RPT>(ps + j * T::PSTR + ry * RPT, p);
-    float b[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) b[q] = cs[j * CW + cx + 32 * q];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(p[i], b[q], acc[i][q]);
   }
 }
 
@@ -335,117 +262,23 @@ __global__ void cce_lse_merge(const float* __restrict__ pm,
   lse[r] = m + logf(fmaxf(s, 1e-30f));
 }
 
-// K3c. Owner w rows [o0, o0 + BO) against h tiles (the walkers); the
-// lse and g of a probability belong to its h row. Writes the (BO x d)
-// accumulator to out.
-template <int RPT, int DCH>
-__global__ void __launch_bounds__(NT, 1)
-cce_dw_kernel(const float* __restrict__ owner,
-              const float* __restrict__ walker,
-              const float* __restrict__ lse, const float* __restrict__ g,
-              float* __restrict__ out, int n_owner, int n_walker, int d) {
-  using T = Tile<RPT>;
-  extern __shared__ __align__(16) float smem[];
-  float* os = smem;
-  float* bs = os + 2 * T::OS;
-  float* pbuf = bs + 2 * T::BS;
-  float* cs = pbuf + T::PS;
-  const int tid = threadIdx.x, ry = tid / 32, cx = tid % 32;
-  const int o0 = blockIdx.x * T::BO;
-  const int tiles = (n_walker + BW - 1) / BW;
-  const int nks = (d + BK - 1) / BK;
-  const int nch = (d + CW - 1) / CW;
-  const bool vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(walker) & 15) == 0;
-
-  float acc[DCH][RPT][4];
-#pragma unroll
-  for (int c = 0; c < DCH; ++c)
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[c][i][q] = 0.f;
-
-  load_slice<RPT>(os, bs, owner, walker, o0, n_owner, 0, n_walker, 0, d,
-                  tid);
-  cp_commit();
-  for (int t = 0; t < tiles; ++t) {
-    const int j0 = t * BW;
-    float s[RPT][4];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[i][q] = 0.f;
-    // S = owner . walker^T; slice k in buffer k & 1
-    for (int k = 0; k < nks; ++k) {
-      const int nb = (k + 1) & 1;
-      if (k + 1 < nks)
-        load_slice<RPT>(os + nb * T::OS, bs + nb * T::BS, owner, walker, o0,
-                        n_owner, j0, n_walker, (k + 1) * BK, d, tid);
-      else
-        load_chunk(cs, walker, j0, n_walker, 0, d, vec, tid);
-      cp_commit();
-      cp_wait<1>();
-      __syncthreads();
-      mma_slice<RPT>(os + (k & 1) * T::OS, bs + (k & 1) * T::BS, s, ry, cx);
-      __syncthreads();
-    }
-    // P = exp(S - lse) * g, zero past the walker's rows
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int j = j0 + cx + 32 * q;
-      const bool ok = j < n_walker;
-      const float l = ok ? lse[j] : 0.f;
-      const float gg = ok ? g[j] : 0.f;
-      float* dst = pbuf + (cx + 32 * q) * T::PSTR + ry * RPT;
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-        dst[i] = ok ? expf(s[i][q] - l) * gg : 0.f;
-    }
-    // acc += P . walker, CW columns at a time; chunk c in buffer c & 1
-#pragma unroll
-    for (int c = 0; c < DCH; ++c) {
-      if (c < nch) {
-        if (c + 1 < nch)
-          load_chunk(cs + ((c + 1) & 1) * T::CS, walker, j0, n_walker,
-                     (c + 1) * CW, d, vec, tid);
-        else if (t + 1 < tiles)
-          load_slice<RPT>(os, bs, owner, walker, o0, n_owner, j0 + BW,
-                          n_walker, 0, d, tid);
-        cp_commit();
-        cp_wait<1>();
-        __syncthreads();
-        pw_chunk<RPT>(pbuf, cs + (c & 1) * T::CS, acc[c], ry, cx);
-        __syncthreads();
-      }
-    }
-  }
-  cp_wait<0>();
-#pragma unroll
-  for (int c = 0; c < DCH; ++c)
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = o0 + ry * RPT + i;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = c * CW + cx + 32 * q;
-        if (c < nch && r < n_owner && col < d)
-          out[(size_t)r * d + col] = acc[c][i][q];
-      }
-    }
-}
-
-// K3b on the tensor cores (see the head note). The tile geometry: a
-// block owns BO = 16 MT h rows; each of its NW warps owns DW = 8 NTW
-// columns of D, padded to DP = NW DW; a vocab tile is BV rows of w.
-namespace k3b {
+// K3b and K3c on the tensor cores (see the head note): one body, an
+// "owner" tile of rows with its gradient in registers walking tiles of
+// the "walker" rows. K3b: owner h, walker w; K3c: owner w, walker h. The
+// tile geometry: a block owns BO = 16 MT owner rows; each of its NW warps
+// owns DW = 8 NTW columns of D, padded to DP = NW DW; a walker tile is BV
+// rows.
+namespace tc {
 
 constexpr int NW = 8;           // warps a block
 constexpr int NTH = 32 * NW;    // threads a block
-constexpr int BV = 32;          // vocab rows a tile
+constexpr int BV = 32;          // walker rows a tile
 constexpr int PS = 32;          // row stride of an S or P tile (BV)
+constexpr int SK = 4;           // 8-deep steps of S summed in the MMAs
 
-// Index of (r, c) in a [rows][DP] tile of h or w: the 16-byte chunks of
-// a row are XOR-swizzled by f(r), a permutation of r % 8, so that both
+// Index of (r, c) in a [rows][DP] tile of owner or walker rows: the
+// 16-byte chunks of a row are XOR-swizzled by f(r), a permutation of
+// r % 8, so that both
 // the reads along a row (fragment rows g, columns t) and across rows
 // (fragment rows t, columns g) touch 32 distinct banks.
 template <int DP>
@@ -457,67 +290,6 @@ __device__ __forceinline__ int at(int r, int c) {
 // Index of (r, c) in a [rows][PS] tile of S or P.
 __device__ __forceinline__ int sat(int r, int c) {
   return r * PS + (c ^ ((r & 7) << 2));
-}
-
-constexpr uint32_t TF32_MASK = 0xffffe000u;   // sign, exponent, 10 bits
-
-// x rounded to TF32 to nearest (ties away from zero), as fp32 bits.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & TF32_MASK;
-}
-
-// x = hi + lo, both TF32: hi is x rounded toward zero, lo the rest
-// rounded to nearest (CUTLASS's FastF32 split: round_toward_zero big,
-// round_half_ulp_truncate small).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & TF32_MASK;
-  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-// x with its lo part pre-rounded, so that split_exact gives the same hi
-// and lo with two operations: hi + lo is exact in fp32 (lo's bits lie
-// within x's 23).
-__device__ __forceinline__ float presplit(float x) {
-  uint32_t hi, lo;
-  split(x, hi, lo);
-  return __fadd_rn(__uint_as_float(hi), __uint_as_float(lo));
-}
-
-__device__ __forceinline__ void split_exact(float x, uint32_t& hi,
-                                            uint32_t& lo) {
-  hi = __float_as_uint(x) & TF32_MASK;
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-// Four 8 x 4 fp32 matrices from shared memory, each lane giving the
-// address of one 16-byte row (lanes 8i to 8i + 7: matrix i); lane t
-// receives (row t / 4, column t % 4) of each, the TF32 fragment layout.
-__device__ __forceinline__ void ldsm4(const float* row, uint32_t (&r)[4]) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b in 3xTF32, a = ah + al and b = bh + bl, al bl dropped; the
-// small terms first.
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
 }
 
 // One warp's copy: tile rows [r0, r0 + cnt) (global row g0 + r of src,
@@ -549,18 +321,24 @@ struct Geometry {
   static constexpr int SMEM_BYTES = (BO * DP + BV * DP + NW * BO * PS) * 4;
 };
 
-// Block (row tile x, vocab chunk y): the partial dh of its h rows over
-// the chunk's vocab tiles -> out + y * n * d.
-template <int MT, int NTW>
+// Block (owner tile x, walker chunk y): the partial gradient of its
+// owner rows over the chunk's walker tiles -> out + y * n_own * d, with
+// own (n_own, d) and walk (n_walk, d) row-major:
+//   out[r] = sum_c exp(own[r] . walk[c] - lse[i]) g[i] walk[c],
+// i = r (K3b: own = h, walk = w; lse and g belong to the owner's rows)
+// or, with BY_WALKER, i = c (K3c: own = w, walk = h; they belong to the
+// walker's rows).
+template <int MT, int NTW, bool BY_WALKER>
 __global__ void __launch_bounds__(NTH, 1)
-cce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
-              const float* __restrict__ lse, const float* __restrict__ g,
-              float* __restrict__ out, int n, int v, int d) {
+cce_grad_kernel(const float* __restrict__ own,
+                const float* __restrict__ walk,
+                const float* __restrict__ lse, const float* __restrict__ g,
+                float* __restrict__ out, int n_own, int n_walk, int d) {
   using G = Geometry<MT, NTW>;
   constexpr int BO = G::BO, DW = G::DW, DP = G::DP;
   extern __shared__ __align__(16) float smem[];
-  float* hs = smem;                // [BO][DP], the block's h rows
-  float* ws = hs + BO * DP;        // [BV][DP], one vocab tile of w
+  float* os = smem;                // [BO][DP], the block's owner rows
+  float* ws = os + BO * DP;        // [BV][DP], one walker tile
   float* sp = ws + BV * DP;        // [NW][BO][PS] partial S; then P's hi, lo
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = lane >> 2, tq = lane & 3;
@@ -569,26 +347,27 @@ cce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
   // fragment (16 x 8), and in two B fragments (8 + 8 rows x 8)
   const int ar = (lane & 7) + 8 * ((lane >> 3) & 1), ac = 4 * (lane >> 4);
   const int br = (lane & 7) + 8 * (lane >> 4), bc = 4 * ((lane >> 3) & 1);
-  const int tiles = (v + BV - 1) / BV;
+  const int tiles = (n_walk + BV - 1) / BV;
   const int t0 = (int)((long long)blockIdx.y * tiles / gridDim.y);
   const int t1 = (int)((long long)(blockIdx.y + 1) * tiles / gridDim.y);
   const bool vec = d % 4 == 0 &&
-      ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w)) &
-       15) == 0;
+      ((reinterpret_cast<uintptr_t>(own) |
+        reinterpret_cast<uintptr_t>(walk)) & 15) == 0;
 
   // every warp copies, and later reads, only its own columns
-  load_rows<DP, DW>(hs, h, o0, n, 0, BO, c0, d, vec, lane);
-  if (t0 < t1) load_rows<DP, DW>(ws, w, t0 * BV, v, 0, BV, c0, d, vec, lane);
+  load_rows<DP, DW>(os, own, o0, n_own, 0, BO, c0, d, vec, lane);
+  if (t0 < t1)
+    load_rows<DP, DW>(ws, walk, t0 * BV, n_walk, 0, BV, c0, d, vec, lane);
   cp_commit();
-  // the h rows serve every tile: store them pre-split once
+  // the owner rows serve every tile: store them pre-split once
   cp_wait<0>();
   __syncwarp();
   for (int i = lane; i < BO * DW; i += 32) {
-    float& x = hs[at<DP>(i / DW, c0 + i % DW)];
+    float& x = os[at<DP>(i / DW, c0 + i % DW)];
     x = presplit(x);
   }
   __syncwarp();
-  // this lane's 16-byte copies of an 8-row group of the w tile: shared
+  // this lane's 16-byte copies of an 8-row group of the walker tile: shared
   // offset from the group's first row (the swizzle repeats every 8
   // rows) and global offset from that row, -1 past d
   constexpr int GPL = DW / 16;
@@ -613,7 +392,13 @@ cce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
     const int j0 = t * BV;
     cp_wait<0>();
     __syncwarp();
-    // this warp's share of S = h . w^T: the sum over its columns
+    // this warp's share of S = own . walk^T: the sum over its columns,
+    // SK 8-deep steps at a time summed from zero in the MMAs and added
+    // in fp32. Summed over all NTW steps in the MMAs, S's truncation
+    // moved dw by ~4e-6 of its largest value (dw sums h rows of mixed
+    // sign) and dh by ~2.5e-6; four steps at a time ~1.9e-6 and ~1.3e-6
+    // for 0.1-0.3 ms; every step ~0.9e-6 and ~1.1e-6 for ~0.5 ms
+    // (tools/dh_breakdown.py)
     float s[MT][BV / 8][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -621,32 +406,48 @@ cce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
       for (int nt = 0; nt < BV / 8; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) s[mt][nt][q] = 0.f;
-#pragma unroll 4
-    for (int ks = 0; ks < NTW; ++ks) {
-      const int k0 = c0 + 8 * ks;
-      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll (4 / SK)
+    for (int kg = 0; kg < NTW; kg += SK) {
+      float sx[MT][BV / 8][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t x[4];
-        ldsm4(hs + at<DP>(16 * mt + ar, k0 + ac), x);
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          split_exact(__uint_as_float(x[q]), ah[mt][q], al[mt][q]);
-      }
+        for (int nt = 0; nt < BV / 8; ++nt)
 #pragma unroll
-      for (int np = 0; np < BV / 16; ++np) {
-        uint32_t y[4];   // b0, b1 of MMA column tile 2 np, then of 2 np + 1
-        ldsm4(ws + at<DP>(16 * np + br, k0 + bc), y);
+          for (int q = 0; q < 4; ++q) sx[mt][nt][q] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split(__uint_as_float(y[2 * e]), bh0, bl0);
-          split(__uint_as_float(y[2 * e + 1]), bh1, bl1);
+      for (int ks = kg; ks < kg + SK; ++ks) {
+        const int k0 = c0 + 8 * ks;
+        uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma3(s[mt][2 * np + e], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t x[4];
+          ldsm4(os + at<DP>(16 * mt + ar, k0 + ac), x);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            split_exact(__uint_as_float(x[q]), ah[mt][q], al[mt][q]);
+        }
+#pragma unroll
+        for (int np = 0; np < BV / 16; ++np) {
+          uint32_t y[4];   // b0, b1 of MMA column tile 2 np, then 2 np + 1
+          ldsm4(ws + at<DP>(16 * np + br, k0 + bc), y);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split(__uint_as_float(y[2 * e]), bh0, bl0);
+            split(__uint_as_float(y[2 * e + 1]), bh1, bl1);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma3(sx[mt][2 * np + e], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+          }
         }
       }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < BV / 8; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) s[mt][nt][q] += sx[mt][nt][q];
     }
     __syncthreads();   // every warp is past its reads of the last P
     float* part = sp + warp * BO * PS;
@@ -663,26 +464,26 @@ cce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
     __syncthreads();
     // P = exp(S - lse) g, the partial S summed in warp order, stored split
     // (hi over warp 0's partial, lo over warp 1's: each element is read
-    // and written by one thread); zero past n and v
+    // and written by one thread); zero past n_own and n_walk
 #pragma unroll
     for (int e = threadIdx.x; e < BO * BV; e += NTH) {
       const int r = e / BV, c = e % BV, i = sat(r, c);
       float sum = 0.f;
 #pragma unroll
       for (int q = 0; q < NW; ++q) sum += sp[q * BO * PS + i];
-      const int row = o0 + r;
-      const float p =
-          row < n && j0 + c < v ? expf(sum - lse[row]) * g[row] : 0.f;
+      const int row = o0 + r, col = j0 + c, at_lg = BY_WALKER ? col : row;
+      const float p = row < n_own && col < n_walk
+                          ? expf(sum - lse[at_lg]) * g[at_lg] : 0.f;
       uint32_t hi, lo;
       split(p, hi, lo);
       sp[i] = __uint_as_float(hi);
       sp[BO * PS + i] = __uint_as_float(lo);
     }
     __syncthreads();
-    // dh += P . w over the tile's rows, this warp's columns, 4 MMA
+    // out += P . walk over the tile's rows, this warp's columns, 4 MMA
     // columns at a time: their product is summed from zero over the
     // tile (12 MMAs) and then added to acc in fp32, because the tensor
-    // cores' accumulation truncates (over a whole vocab chunk, ~9000
+    // cores' accumulation truncates (over K3b's whole vocab chunk, ~9000
     // MMAs, that costs ~1e-4 of dh). As the last group finishes each 8
     // rows of the tile, the warp starts copying the next tile's into them.
     const float* ph = sp;
@@ -719,15 +520,16 @@ cce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
           __syncwarp();
           const int r0 = 8 * kb, g0 = j0 + BV + r0;
           if (vec) {
-            const int lim = (v - g0) * DP;   // rows left, as an offset
-            const float* src = w + (size_t)g0 * d;
+            const int lim = (n_walk - g0) * DP;   // rows left, as an offset
+            const float* src = walk + (size_t)g0 * d;
 #pragma unroll
             for (int i = 0; i < GPL; ++i) {
               const bool ok = goff[i] >= 0 && soff[i] < lim;
-              cp16(ws + r0 * DP + soff[i], ok ? src + goff[i] : w, ok);
+              cp16(ws + r0 * DP + soff[i], ok ? src + goff[i] : walk, ok);
             }
           } else {
-            load_rows<DP, DW>(ws, w, j0 + BV, v, r0, 8, c0, d, false, lane);
+            load_rows<DP, DW>(ws, walk, j0 + BV, n_walk, r0, 8, c0, d, false,
+                              lane);
           }
         }
         cp_commit();
@@ -741,7 +543,7 @@ cce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
     }
   }
   cp_wait<0>();
-  float* o = out + (size_t)blockIdx.y * n * d;
+  float* o = out + (size_t)blockIdx.y * n_own * d;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -750,7 +552,7 @@ cce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
       for (int half = 0; half < 2; ++half) {
         const int row = o0 + 16 * mt + gq + 8 * half;
         const int col = c0 + 8 * nt + 2 * tq;
-        if (row < n) {
+        if (row < n_own) {
           if (col < d) o[(size_t)row * d + col] = acc[mt][nt][2 * half];
           if (col + 1 < d)
             o[(size_t)row * d + col + 1] = acc[mt][nt][2 * half + 1];
@@ -758,7 +560,7 @@ cce_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
       }
 }
 
-}  // namespace k3b
+}  // namespace tc
 
 // K3b, second pass: dh = sum over chunks of the partial dh, chunk order.
 __global__ void cce_sum_chunks(const float* __restrict__ part,
@@ -779,37 +581,58 @@ cudaError_t set_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <int MT, int NTW, typename F>
-cudaError_t call_dh(F&& f) {
-  using G = k3b::Geometry<MT, NTW>;
-  return f(k3b::cce_dh_kernel<MT, NTW>, G::BO, G::SMEM_BYTES);
+template <bool BY_WALKER, int MT, int NTW, typename F>
+cudaError_t call_grad(F&& f) {
+  using G = tc::Geometry<MT, NTW>;
+  return f(tc::cce_grad_kernel<MT, NTW, BY_WALKER>, G::BO, G::SMEM_BYTES);
 }
 
-// f(kernel, h rows a block, dynamic shared bytes) of the K3b body for d:
-// D <= 256, 512, 768 take 32 rows a block and D / 8 columns a warp (the
-// accumulator is <= 96 registers); D <= 1024 takes 16 rows. Returns
-// cudaErrorInvalidValue past 1024.
-template <typename F>
-cudaError_t with_dh_body(int d, F&& f) {
-  if (d <= 256) return call_dh<2, 4>(f);
-  if (d <= 512) return call_dh<2, 8>(f);
-  if (d <= 768) return call_dh<2, 12>(f);
-  if (d <= 1024) return call_dh<1, 16>(f);
+// f(kernel, owner rows a block, dynamic shared bytes) of the K3b
+// (BY_WALKER false) or K3c (true) body for d: D <= 256, 512, 768 take 32
+// rows a block and D / 8 columns a warp (the accumulator is <= 96
+// registers); D <= 1024 takes 16 rows. Returns cudaErrorInvalidValue
+// past 1024.
+template <bool BY_WALKER, typename F>
+cudaError_t with_grad_body(int d, F&& f) {
+  if (d <= 256) return call_grad<BY_WALKER, 2, 4>(f);
+  if (d <= 512) return call_grad<BY_WALKER, 2, 8>(f);
+  if (d <= 768) return call_grad<BY_WALKER, 2, 12>(f);
+  if (d <= 1024) return call_grad<BY_WALKER, 1, 16>(f);
   return cudaErrorInvalidValue;
 }
 
-template <int RPT, int DCH>
-cudaError_t launch_dw(const float* h, const float* w, const float* lse,
-                      const float* g, float* dw, int n, int v, int d,
-                      cudaStream_t stream) {
-  using T = Tile<RPT>;
-  const int smem = T::GRAD_FLOATS * (int)sizeof(float);
-  auto kernel = cce_dw_kernel<RPT, DCH>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((v + T::BO - 1) / T::BO);
-  kernel<<<grid, NT, smem, stream>>>(w, h, lse, g, dw, v, n, d);
-  return cudaGetLastError();
+// What the body for d uses: registers and local (spilled) bytes a
+// thread, dynamic shared memory bytes and owner rows a block.
+template <bool BY_WALKER>
+cudaError_t grad_usage(int d, int* regs, int* local_bytes, int* smem_bytes,
+                       int* rows) {
+  return with_grad_body<BY_WALKER>(d, [&](auto kernel, int r, int smem) {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return e;
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    *smem_bytes = smem;
+    *rows = r;
+    return cudaSuccess;
+  });
+}
+
+// One launch of the body: grid (owner tiles, splits), owner (n_owner, d)
+// and walker (n_walker, d) row-major.
+template <bool BY_WALKER>
+cudaError_t launch_grad(const float* owner, const float* walker,
+                        const float* lse, const float* g, float* out,
+                        int n_owner, int n_walker, int d, int splits,
+                        cudaStream_t s) {
+  return with_grad_body<BY_WALKER>(d, [&](auto kernel, int rows, int smem) {
+    cudaError_t e = set_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid((n_owner + rows - 1) / rows, splits);
+    kernel<<<grid, tc::NTH, smem, s>>>(owner, walker, lse, g, out, n_owner,
+                                       n_walker, d);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -854,16 +677,11 @@ extern "C" int bigdl_cce_dh_f32(const void* h, const void* w,
   if (d < 1 || splits < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto part = static_cast<float*>(scratch);
-  err = with_dh_body(d, [&](auto kernel, int rows, int smem) {
-    cudaError_t e = set_smem(kernel, smem);
-    if (e != cudaSuccess) return e;
-    dim3 grid((n + rows - 1) / rows, splits);
-    kernel<<<grid, k3b::NTH, smem, s>>>(
-        static_cast<const float*>(h), static_cast<const float*>(w),
-        static_cast<const float*>(lse), static_cast<const float*>(g), part,
-        n, v, d);
-    return cudaGetLastError();
-  });
+  err = launch_grad<false>(static_cast<const float*>(h),
+                           static_cast<const float*>(w),
+                           static_cast<const float*>(lse),
+                           static_cast<const float*>(g), part, n, v, d,
+                           splits, s);
   if (err != cudaSuccess) return (int)err;
   const size_t count = (size_t)n * d;
   const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256
@@ -873,39 +691,30 @@ extern "C" int bigdl_cce_dh_f32(const void* h, const void* w,
   return (int)cudaGetLastError();
 }
 
-// What the K3b body for d uses: registers and local (spilled) bytes a
-// thread, dynamic shared memory bytes and h rows a block.
+// What the K3b (dh) or K3c (dw) body for d uses: registers and local
+// (spilled) bytes a thread, dynamic shared memory bytes and owner rows a
+// block.
 extern "C" int bigdl_cce_dh_usage(int d, int* regs, int* local_bytes,
                                   int* smem_bytes, int* rows) {
-  return (int)with_dh_body(d, [&](auto kernel, int r, int smem) {
-    cudaFuncAttributes attr;
-    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-    if (e != cudaSuccess) return e;
-    *regs = attr.numRegs;
-    *local_bytes = (int)attr.localSizeBytes;
-    *smem_bytes = smem;
-    *rows = r;
-    return cudaSuccess;
-  });
+  return (int)grad_usage<false>(d, regs, local_bytes, smem_bytes, rows);
 }
 
-// K3c: dw (v, d). D <= 256: 4 rows a warp, 2 column chunks; D <= 768: 4
-// rows, 6 chunks; D <= 1024: 2 rows, 8 chunks (the accumulator stays at
-// <= 96 registers).
+extern "C" int bigdl_cce_dw_usage(int d, int* regs, int* local_bytes,
+                                  int* smem_bytes, int* rows) {
+  return (int)grad_usage<true>(d, regs, local_bytes, smem_bytes, rows);
+}
+
+// K3c: dw (v, d), the K3b body with the roles swapped: a block owns 32
+// vocab rows (16 when D > 768) and walks every h row, one block per
+// vocab tile (1571 at V = 50257), so nothing needs merging.
 extern "C" int bigdl_cce_dw_f32(const void* h, const void* w,
                                 const void* lse, const void* g, void* dw,
                                 int n, int v, int d, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto fh = static_cast<const float*>(h);
-  auto fw = static_cast<const float*>(w);
-  auto fl = static_cast<const float*>(lse);
-  auto fg = static_cast<const float*>(g);
-  auto o = static_cast<float*>(dw);
-  if (d <= 256) return (int)launch_dw<4, 2>(fh, fw, fl, fg, o, n, v, d, s);
-  if (d <= 768) return (int)launch_dw<4, 6>(fh, fw, fl, fg, o, n, v, d, s);
-  if (d <= 1024) return (int)launch_dw<2, 8>(fh, fw, fl, fg, o, n, v, d, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_grad<true>(
+      static_cast<const float*>(w), static_cast<const float*>(h),
+      static_cast<const float*>(lse), static_cast<const float*>(g),
+      static_cast<float*>(dw), v, n, d, 1, static_cast<cudaStream_t>(stream));
 }

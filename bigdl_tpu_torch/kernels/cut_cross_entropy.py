@@ -5,10 +5,11 @@ the (N, V) logits in device memory.
 `cut_cross_entropy(h, w, labels)` is a `torch.autograd.Function` whose
 forward launches K3a (`cce_lse`, the per-row logsumexp) and whose
 backward launches K3b (`cce_dh`) and K3c (`cce_dw`), the hand-written
-CUDA kernels of `csrc/cut_cross_entropy.cu`. K3a and K3c use fp32 FMAs;
-K3b runs its products on the tensor cores in 3xTF32 (each fp32 operand
-split into two TF32 parts, three TF32 products), which keeps fp32
-accuracy (CCE_TOL in the tests) and never reads PyTorch's TF32 flags.
+CUDA kernels of `csrc/cut_cross_entropy.cu`. K3a uses fp32 FMAs; K3b
+and K3c (one body, the roles of h and w swapped) run their products on
+the tensor cores in 3xTF32 (each fp32 operand split into two TF32 parts,
+three TF32 products), which keeps fp32 accuracy (CCE_TOL in the tests)
+and never reads PyTorch's TF32 flags.
 The label terms stay outside the kernels, as in the reference: the
 gather-dot `h . w[labels]` in the forward, `dh -= g w[labels]` and the
 scatter-add `dw[labels] -= g h` in the backward.
@@ -39,7 +40,8 @@ BLOCK_N, BLOCK_V = 128, 512
 MAX_D = 1024
 # the kernels' tiles (csrc/cut_cross_entropy.cu): K3a owns 64 rows a
 # block and walks the vocab in 128-row tiles; K3b owns 32 rows (16 when
-# D > 768) and walks it in 32-row tiles, one block per SM
+# D > 768) and walks it in 32-row tiles, one block per SM (K3c the same
+# with the roles of h and w swapped)
 LSE_ROWS, LSE_VOCAB_TILE = 64, 128
 DH_VOCAB_TILE = 32
 # blocks a K3a launch aims for, per SM, when it splits the vocab walk
@@ -174,15 +176,24 @@ def cce_dh(h, w, lse, g):
     return dh
 
 
+def _usage(name: str, d: int) -> dict:
+    fn = _fn(f"bigdl_{name}_usage", [ctypes.c_int] + [ctypes.c_void_p] * 4)
+    vals = [ctypes.c_int() for _ in range(4)]
+    _native.check(fn(d, *map(ctypes.byref, vals)), f"{name} usage")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "rows"),
+                    (v.value for v in vals)))
+
+
 def dh_kernel_usage(d: int) -> dict:
     """Registers and local (spilled) bytes a thread, dynamic shared
     memory bytes and h rows a block, of the K3b body for width d (CUDA
     only)."""
-    fn = _fn("bigdl_cce_dh_usage", [ctypes.c_int] + [ctypes.c_void_p] * 4)
-    vals = [ctypes.c_int() for _ in range(4)]
-    _native.check(fn(d, *map(ctypes.byref, vals)), "cce_dh usage")
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "rows"),
-                    (v.value for v in vals)))
+    return _usage("cce_dh", d)
+
+
+def dw_kernel_usage(d: int) -> dict:
+    """The same for the K3c body (its rows are w rows)."""
+    return _usage("cce_dw", d)
 
 
 def cce_dw(h, w, lse, g):

@@ -3,7 +3,11 @@
 `flash_attention` launches the hand-written CUDA kernel
 `csrc/flash_attention.cu` for CUDA tensors and takes the plain dense
 version `flash_attention_plain` for CPU tensors; on any other device it
-raises. It is differentiable: a `torch.autograd.Function` whose forward
+raises. The kernel runs both of its products on the tensor cores in
+3xTF32 (each fp32 operand split into two TF32 parts, three TF32
+products), which keeps fp32 accuracy (FLASH_TOL in the tests) and never
+reads PyTorch's TF32 flags; it takes any head dim. It is
+differentiable: a `torch.autograd.Function` whose forward
 is that call and whose backward recomputes the attention under autograd
 and returns its vector-Jacobian product, as the reference's custom_vjp
 does (bigdl_tpu/kernels/flash_attention.py `_fwd`/`_bwd`). That backward
@@ -33,7 +37,6 @@ from bigdl_tpu_torch.kernels import _native
 from bigdl_tpu_torch.nn.attention import causal_mask
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
 
 
 def flash_attention_plain(q, k, v, causal: bool = False,
@@ -52,14 +55,30 @@ def flash_attention_plain(q, k, v, causal: bool = False,
     return torch.matmul(w, v.float()).to(q.dtype)
 
 
-def _lib():
-    lib = _native.load("flash_attention")
-    fn = lib.bigdl_flash_attention_fwd_f32
+def _fn(name, argtypes):
+    fn = getattr(_native.load("flash_attention"), name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _fn("bigdl_flash_attention_fwd_f32",
+               [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p])
+
+
+def kernel_usage(d: int) -> dict:
+    """Registers and local (spilled) bytes a thread, dynamic shared
+    memory bytes a block, and the columns of d a slice holds, of the
+    kernel's body for head dim d (CUDA only)."""
+    fn = _fn("bigdl_flash_attention_usage",
+             [ctypes.c_int] + [ctypes.c_void_p] * 4)
+    vals = [ctypes.c_int() for _ in range(4)]
+    _native.check(fn(d, *map(ctypes.byref, vals)), "flash_attention usage")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "cols"),
+                    (v.value for v in vals)))
 
 
 def flash_attention(q, k, v, causal: bool = False,
@@ -68,7 +87,7 @@ def flash_attention(q, k, v, causal: bool = False,
     differentiable in q, k and v (recompute backward, see the module
     docstring).
 
-    CUDA tensors must be contiguous fp32 with d <= 128."""
+    CUDA tensors must be contiguous fp32; d may be any size."""
     return _FlashAttentionFn.apply(q, k, v, causal, scale)
 
 
@@ -96,11 +115,8 @@ def _forward(q, k, v, causal, scale):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the CUDA flash_attention kernel takes contiguous "
                          "q/k/v")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention head dim d={d} is outside the "
-                         f"kernel's 1..{MAX_HEAD_DIM}")
     out = torch.empty_like(q)
-    if b * h * tq == 0:
+    if b * h * tq * d == 0:
         return out
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

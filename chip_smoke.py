@@ -9,12 +9,14 @@ Phases, in order; any failed check exits non-zero:
      parallel;
   2. kernels — each kernel's wrapper against its plain PyTorch version on
      the card, at the main paths' shapes and at ragged ones: flash
-     attention within FLASH_TOL, the int8 GEMM and the fused optimizer
-     update bit for bit, flash attention's gradients (dense recompute
-     backward) within GRAD_TOL of autograd through the plain version, with
-     the peak memory of each backward; with kernel,
-     plain and library times (CUDA events) and the bound the card's
-     peaks set;
+     attention within FLASH_TOL (head dims 64, 97, 128, 200 and 256,
+     rows that see no key, a TF32 dense attention shown to fail the
+     tolerance), the int8 GEMM and the fused optimizer update bit for
+     bit, flash attention's gradients (dense recompute backward) within
+     GRAD_TOL of autograd through the plain version, with the peak
+     memory of each backward; with kernel, plain and library times (CUDA
+     events; flash attention at the serving and the training shape) and
+     the bound the card's peaks set;
   3. the slice — LlamaLM at the 125M width (vocab 32000, d 768, 12 heads,
      4 kv heads, d_ff 3072, 12 layers, tied head) with seeded random
      weights and FlashAttention, registered int8 on ServeEngine
@@ -50,13 +52,14 @@ Phases, in order; any failed check exits non-zero:
 Phase 2 also holds the cut cross-entropy kernels (K3a/K3b/K3c) and the
 autograd Function around them against the dense plain version within
 CCE_TOL, at the pipelined LM's shape and at ragged ones, shows that a
-TF32 product would fail that tolerance, and that K3b (3xTF32 on the
-tensor cores) gives the same bits on two launches and with PyTorch's
+TF32 product would fail that tolerance, and that K3b and K3c (3xTF32 on
+the tensor cores) give the same bits on two launches and with PyTorch's
 TF32 switch on. The int8 GEMM (K4, int8 tensor-core MMAs) is also held
 bit for bit at ragged M and N, at K % 16 != 0 and on an unaligned
-operand. For K4 and K3b it prints the body launched and its registers
-and shared memory; an fp32 product kernel's bound is its operations as
-3xTF32 on the tensor cores, with the fp32-FMA figure beside it.
+operand. For K2, K4, K3b and K3c it prints the body launched and its
+registers and shared memory; an fp32 product kernel's bound is its
+operations as 3xTF32 on the tensor cores, with the fp32-FMA figure
+beside it.
 
 The last lines are the kernel record (one JSON object), the card line,
 and `{"ok": true, "device": {...}}`. Exits non-zero without printing a
@@ -152,46 +155,107 @@ def fp32_bound(nbytes, flops):
 
 # ---------------------------------------------------------------- phase 2
 def check_flash(dev, gen):
+    """K2 against its plain version within FLASH_TOL at the main paths'
+    shapes and at ragged ones (Tq, Tk and d; rows that see no key; d past
+    128), and a TF32 dense attention held to the same tolerance must fail
+    it. Times the kernel at the serving and the training shape, and its
+    d > 128 body at d = 256, beside the plain version, SDPA and the
+    bound."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, kernel_usage)
+    hd = D // HEADS
+
+    def qkv(b, h, tq, tk, d):
+        return tuple(torch.randn(b, h, t, d, generator=gen, device=dev)
+                     for t in (tq, tk, tk))
+
+    def within(got, want):
+        return bool(((got - want).abs()
+                     <= FLASH_TOL + FLASH_TOL * want.abs()).all())
+
     worst = 0.0
-    for b, h, tq, tk, causal in ((2, 3, 77, 133, True), (2, 3, 133, 77, True),
-                                 (1, 2, 50, 77, False),
-                                 (MAX_BATCH, HEADS, SEQ, SEQ, True)):
-        q, k, v = (torch.randn(b, h, t, D // HEADS, generator=gen, device=dev)
-                   for t in (tq, tk, tk))
+    for b, h, tq, tk, causal, d in (
+            (2, 3, 77, 133, True, hd), (2, 3, 133, 77, True, hd),
+            (1, 2, 50, 77, False, hd), (2, 3, 77, 133, True, 128),
+            (2, 3, 133, 77, True, 256),      # d > 128, rows without keys
+            (1, 2, 50, 77, False, 97),       # ragged d: 4-byte copies
+            (1, 2, 130, 70, False, 200),     # ragged d past 128
+            (TRAIN_BATCH, HEADS, TRAIN_SEQ, TRAIN_SEQ, True, hd),
+            (MAX_BATCH, HEADS, SEQ, SEQ, True, hd)):
+        q, k, v = qkv(b, h, tq, tk, d)
         got = flash_attention(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        ok = bool(((got - want).abs()
-                   <= FLASH_TOL + FLASH_TOL * want.abs()).all())
-        log(f"  flash_attention B={b} H={h} Tq={tq} Tk={tk} causal={causal}: "
-            f"max|kernel-plain|={err:.3e} within {FLASH_TOL} abs+rel: {ok}")
+        ok = within(got, want)
+        log(f"  flash_attention B={b} H={h} Tq={tq} Tk={tk} d={d} causal="
+            f"{causal}: max|kernel-plain|={err:.3e} within {FLASH_TOL} "
+            f"abs+rel: {ok}")
         if not ok:
             raise SystemExit("flash_attention disagrees with its plain version")
         worst = max(worst, err)
-    # timing at the serving shape (the last case above)
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True))
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))       # Tq == Tk: top-left == bottom-right
-    b, h, t, d = q.shape
-    nbytes = 4 * q.numel() * 4                      # q, k, v, o in fp32
-    ops = b * h * (t * (t + 1) // 2) * 4 * d        # visible pairs x 4d
-    bms, by, fma_ms = fp32_bound(nbytes, ops)
-    log(f"  flash_attention B={b} H={h} T={t} d={d} causal: kernel {ms:.4f} "
-        f"ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms; bound {bms:.4f} ms "
-        f"({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP fp32 as "
-        f"3xTF32; on fp32 FMAs {fma_ms:.4f} ms)")
+
+    # the tolerance has teeth: the dense attention with TF32 products, at
+    # the serving shape (the last case above)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_err = (tf32 - want).abs().max().item()
+    log(f"  TF32 dense attention at the serving shape: max|tf32 - plain|="
+        f"{tf32_err:.3e}; within {FLASH_TOL} abs+rel: {within(tf32, want)} "
+        f"(must fail)")
+    if within(tf32, want):
+        raise SystemExit("FLASH_TOL would pass a TF32 product; tighten it")
+    del tf32, want, got
+
+    def timed(q, k, v):
+        """(kernel, plain, sdpa ms; bound ms, by, fp32-FMA bound ms; MB,
+        GFLOP) of causal attention on these inputs."""
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
+        plain = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+                        iters=5, warmup=1)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))   # Tq == Tk: top-left == bottom-right
+        b, h, t, d = q.shape
+        nbytes = 4 * q.numel() * 4                      # q, k, v, o in fp32
+        ops = b * h * (t * (t + 1) // 2) * 4 * d        # visible pairs x 4d
+        bms, by, fma_ms = fp32_bound(nbytes, ops)
+        log(f"  flash_attention B={b} H={h} T={t} d={d} causal: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms; bound "
+            f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
+            f"GFLOP fp32 as 3xTF32; on fp32 FMAs {fma_ms:.4f} ms)")
+        return ms, plain, lib, bms, by
+
+    ms, plain, lib, bms, by = timed(q, k, v)
+    del q, k, v
+    t_ms, t_plain, t_lib, _, _ = timed(*qkv(TRAIN_BATCH, HEADS, TRAIN_SEQ,
+                                            TRAIN_SEQ, hd))
+    # the d > 128 body, on no path: logged only
+    timed(*qkv(2, HEADS, SEQ, SEQ, 256))
+    usage = kernel_usage(hd)
+    body = (f"3xTF32 mma.sync m16n8k8, d <= {usage['cols']}: Q tile "
+            f"resident, O whole in registers" if hd <= usage["cols"] else
+            f"3xTF32 mma.sync m16n8k8, d in {usage['cols']}-column slices")
+    log(f"  flash_attention body at d={hd}: {body}; {usage['registers']} "
+        f"registers and {usage['local_bytes']} B local a thread, "
+        f"{usage['shared_bytes']} B shared a block")
     return {"name": "flash_attention", "route": "cuda",
             "source": "bigdl_tpu_torch/kernels/csrc/flash_attention.cu",
             "replaces": "bigdl_tpu/kernels/flash_attention.py:156",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
-            "shape": f"B={b} H={h} Tq=Tk={t} d={d} causal fp32"}
+            "body": body, "registers": usage["registers"],
+            "shape": f"B={MAX_BATCH} H={HEADS} Tq=Tk={SEQ} d={hd} causal "
+                     f"fp32",
+            "train_ms": t_ms, "train_plain_ms": t_plain,
+            "train_library_ms": t_lib,
+            "train_shape": f"B={TRAIN_BATCH} H={HEADS} Tq=Tk={TRAIN_SEQ} "
+                           f"d={hd} causal fp32"}
 
 
 def check_int8(dev, gen):
@@ -301,8 +365,6 @@ def check_flash_backward(dev, gen):
                            generator=gen, device=dev).requires_grad_()
                for _ in range(3))
     g = torch.randn_like(q)
-    fwd = cuda_ms(lambda: flash_attention(q.detach(), k.detach(), v.detach(),
-                                          causal=True))
 
     def bwd(attn):
         """(backward ms, peak MiB of one forward and backward above the
@@ -323,13 +385,11 @@ def check_flash_backward(dev, gen):
     log(f"  flash backward B={TRAIN_BATCH} H={HEADS} T={TRAIN_SEQ} d="
         f"{D // HEADS} causal: recompute {ms:.4f} ms (peak +{mib:.1f} MiB), "
         f"plain autograd {plain:.4f} ms (+{plain_mib:.1f} MiB), sdpa "
-        f"backward {lib:.4f} ms (+{lib_mib:.1f} MiB); kernel forward at "
-        f"this shape {fwd:.4f} ms")
+        f"backward {lib:.4f} ms (+{lib_mib:.1f} MiB)")
     return {"backward_ms": ms, "backward_plain_ms": plain,
             "backward_library_ms": lib, "backward_max_abs_err": worst,
             "backward_peak_mib": mib, "backward_plain_peak_mib": plain_mib,
             "backward_library_peak_mib": lib_mib,
-            "train_forward_ms": fwd,
             "backward_shape": f"B={TRAIN_BATCH} H={HEADS} Tq=Tk={TRAIN_SEQ} "
                               f"d={D // HEADS} causal fp32"}
 
@@ -425,9 +485,10 @@ def check_fused_update(dev, gen):
 
 
 def check_cut_cross_entropy(dev, gen):
-    """K3a/K3b/K3c against their plain versions (the same lse and g), and
-    the Function's loss and gradients against autograd through the dense
-    plain version, at the pipelined LM's microbatch (N = 2 x 1024 rows,
+    """K3a/K3b/K3c against their plain versions (the same lse and g; K3c's
+    evaluated in float64), and the Function's loss and gradients against
+    autograd through the dense plain version, at the pipelined LM's
+    microbatch (N = 2 x 1024 rows,
     D = 768, V = 50257) and at ragged shapes; a TF32 dense product held
     to the same tolerance must fail it. Times each kernel at the path's
     shape beside its plain version, the dense route's forward or backward
@@ -461,8 +522,11 @@ def check_cut_cross_entropy(dev, gen):
         pairs = {"cce_lse": (cce.cce_lse(h, w), lse_p),
                  "cce_dh": (cce.cce_dh(h, w, lse_p, g),
                             cce.cce_dh_plain(h, w, lse_p, g)),
+                 # K3c against the plain dw in float64: the fp32 one is
+                 # itself 3-4.5e-6 of its largest value away from it
                  "cce_dw": (cce.cce_dw(h, w, lse_p, g),
-                            cce.cce_dw_plain(h, w, lse_p, g))}
+                            cce.cce_dw_plain(h.double(), w.double(),
+                                             lse_p.double(), g.double()))}
         errs = {k: rel(*ab) for k, ab in pairs.items()}
         for k, ab in pairs.items():
             worst[k] = max(worst[k], abs_err(*ab))
@@ -508,24 +572,26 @@ def check_cut_cross_entropy(dev, gen):
         raise SystemExit("CCE_TOL would pass a TF32 product; tighten it")
     del exact, tf32
 
-    # K3b's chunk merge is in index order and the kernel never reads the
-    # TF32 switch: two launches, and one with the switch on, agree bit
-    # for bit
-    dh1 = cce.cce_dh(h, w, lse_p, g)
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        dh_flag = cce.cce_dh(h, w, lse_p, g)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    dh2 = cce.cce_dh(h, w, lse_p, g)
-    torch.cuda.synchronize()
-    same = torch.equal(dh1, dh2) and torch.equal(dh1, dh_flag)
-    log(f"  cce_dh at the path's shape: two launches and one with "
-        f"allow_tf32 on bitwise equal: {same}")
-    if not same:
-        raise SystemExit("cce_dh is not deterministic or reads the TF32 "
-                         "switch")
-    del dh1, dh2, dh_flag
+    # K3b's chunk merge is in index order, K3c's blocks walk the h rows in
+    # order, and neither kernel reads the TF32 switch: two launches, and
+    # one with the switch on, agree bit for bit
+    for name in ("cce_dh", "cce_dw"):
+        fn = getattr(cce, name)
+        first = fn(h, w, lse_p, g)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            flag = fn(h, w, lse_p, g)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        again = fn(h, w, lse_p, g)
+        torch.cuda.synchronize()
+        same = torch.equal(first, again) and torch.equal(first, flag)
+        log(f"  {name} at the path's shape: two launches and one with "
+            f"allow_tf32 on bitwise equal: {same}")
+        if not same:
+            raise SystemExit(f"{name} is not deterministic or reads the TF32 "
+                             "switch")
+        del first, again, flag
 
     # timing at the path's shape
     n, v, d = n_path, GPT2_VOCAB, GPT2_D
@@ -591,14 +657,18 @@ def check_cut_cross_entropy(dev, gen):
                      "bound_ms": bms, "bound_by": by, "library_ms": lib,
                      "peak_mib": fused_mib, "library_peak_mib": dense_mib,
                      "shape": f"N={n} V={v} D={d} fp32"})
-    usage = cce.dh_kernel_usage(d)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    body = (f"3xTF32 mma.sync m16n8k8, {usage['rows']} h rows a block, "
-            f"{cce.dh_splits(n, v, d, sms)} vocab chunks")
-    log(f"  cce_dh body at the path's shape: {body}; {usage['registers']} "
-        f"registers and {usage['local_bytes']} B local a thread, "
-        f"{usage['shared_bytes']} B shared a block")
-    rows[1].update(body=body, registers=usage["registers"])
+    dh_use, dw_use = cce.dh_kernel_usage(d), cce.dw_kernel_usage(d)
+    for row, usage, body in (
+            (rows[1], dh_use, f"{dh_use['rows']} h rows a block, "
+             f"{cce.dh_splits(n, v, d, sms)} vocab chunks"),
+            (rows[2], dw_use, f"{dw_use['rows']} w rows a block, "
+             f"{-(-v // dw_use['rows'])} blocks")):
+        body = "3xTF32 mma.sync m16n8k8, " + body
+        log(f"  {row['name']} body at the path's shape: {body}; "
+            f"{usage['registers']} registers and {usage['local_bytes']} B "
+            f"local a thread, {usage['shared_bytes']} B shared a block")
+        row.update(body=body, registers=usage["registers"])
     return rows
 
 

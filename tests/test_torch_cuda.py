@@ -13,9 +13,10 @@ import torch
 from bigdl_tpu_torch.kernels import fused_update as fu
 from bigdl_tpu_torch.kernels.cut_cross_entropy import (
     cce_dh, cce_dh_plain, cce_dw, cce_dw_plain, cce_lse, cce_lse_plain,
-    cut_cross_entropy, cut_cross_entropy_plain, dh_kernel_usage)
-from bigdl_tpu_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+    cut_cross_entropy, cut_cross_entropy_plain, dh_kernel_usage,
+    dw_kernel_usage)
+from bigdl_tpu_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_plain, kernel_usage as flash_usage)
 from bigdl_tpu_torch.kernels.quantized_matmul import (
     int8_matmul, int8_matmul_plain, kernel_body, kernel_usage)
 from bigdl_tpu_torch.nn.linear import Linear
@@ -58,7 +59,12 @@ def _rand(cuda, *shape, seed=0):
     (8, 12, 512, 512, True, 64),       # the serving shape
     (2, 2, 37, 91, False, 64), (2, 2, 50, 77, True, 32),
     (1, 3, 64, 60, False, 128), (2, 2, 40, 24, True, 64),   # rows w/o keys
-    (1, 1, 1, 200, True, 16), (1, 2, 130, 130, False, 100)])
+    (1, 1, 1, 200, True, 16), (1, 2, 130, 130, False, 100),
+    (8, 12, 1024, 1024, True, 64),     # the training shape
+    (2, 3, 77, 133, True, 8), (2, 2, 70, 90, False, 97),    # d % 4 != 0
+    (1, 2, 64, 130, True, 136),        # d > 128: slices and column chunks
+    (2, 2, 130, 77, False, 256), (1, 2, 50, 77, True, 512),
+    (2, 2, 133, 77, True, 256)])       # rows without keys at d = 256
 def test_flash_kernel_matches_plain(cuda, b, h, tq, tk, causal, d):
     q = _rand(cuda, b, h, tq, d, seed=1)
     k = _rand(cuda, b, h, tk, d, seed=2)
@@ -72,15 +78,25 @@ def test_flash_kernel_matches_plain(cuda, b, h, tq, tk, causal, d):
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    # any head dim runs: d = 136 takes the sliced body
     q = _rand(cuda, 1, 1, 8, 136)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q, q, q)
+    torch.testing.assert_close(flash_attention(q, q, q),
+                               flash_attention_plain(q, q, q),
+                               atol=FLASH_TOL, rtol=FLASH_TOL)
     q = _rand(cuda, 1, 8, 2, 16).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q)
     with pytest.raises(TypeError, match="fp32"):
         flash_attention(q.contiguous().half(), q.contiguous().half(),
                         q.contiguous().half())
+
+
+@pytest.mark.parametrize("d", [8, 64, 100, 128, 256, 512])
+def test_flash_kernel_usage(cuda, d):
+    use = flash_usage(d)
+    assert use["local_bytes"] == 0 and 0 < use["registers"] <= 255
+    assert use["cols"] == (64 if d <= 64 else 128)
+    assert use["shared_bytes"] <= 227 * 1024
 
 
 @pytest.mark.parametrize("m,k,n", [(4096, 768, 3072), (4096, 3072, 768),
@@ -260,6 +276,13 @@ def _assert_cce_close(got, want):
     assert err <= CCE_TOL * want.abs().max().item(), err
 
 
+def _dw_float64(h, w, lse, g):
+    """The plain dw on the same inputs evaluated in float64. The fp32
+    plain dw is itself 3-4.5e-6 of its largest value from it at the
+    path's shape, most of CCE_TOL, so K3c is held against this one."""
+    return cce_dw_plain(h.double(), w.double(), lse.double(), g.double())
+
+
 CCE_SHAPES = [(2048, 50257, 768),     # the pipelined LM's microbatch
               (333, 1029, 96), (77, 515, 32),
               (130, 777, 100),         # D % 4 != 0: 4-byte copies
@@ -280,7 +303,7 @@ def test_cce_kernels_match_plain(cuda, n, v, d):
         c + 1 for c in counts]
     _assert_cce_close(lse, want_lse)
     _assert_cce_close(dh, cce_dh_plain(h, w, want_lse, g))
-    _assert_cce_close(dw, cce_dw_plain(h, w, want_lse, g))
+    _assert_cce_close(dw, _dw_float64(h, w, want_lse, g))
 
 
 @pytest.mark.parametrize("n,v,d", CCE_SHAPES + [(2047, 50257, 768)])
@@ -321,6 +344,47 @@ def test_cce_dh_is_deterministic_and_ignores_the_tf32_switch(cuda, n, v, d):
                                     (1000, 16)])
 def test_cce_dh_kernel_usage(cuda, d, rows):
     use = dh_kernel_usage(d)
+    assert use["rows"] == rows and use["local_bytes"] == 0
+    assert use["shared_bytes"] <= 227 * 1024
+
+
+@pytest.mark.parametrize("n,v,d", CCE_SHAPES + [(2047, 50257, 768)])
+def test_cce_dw_tensor_core_matches_plain(cuda, n, v, d):
+    """K3c (K3b's 3xTF32 body with the roles of h and w swapped) within
+    CCE_TOL of the plain version in float64, at every shape and at an N
+    that is not a multiple of its 32-row walker tile."""
+    h, w, _ = _cce_inputs(cuda, n, v, d, seed=31)
+    g = _rand(cuda, n, seed=32)
+    lse = cce_lse_plain(h, w)
+    n0 = cce_dw.launches.value
+    got = cce_dw(h, w, lse, g)
+    torch.cuda.synchronize()
+    assert cce_dw.launches.value == n0 + 1
+    _assert_cce_close(got, _dw_float64(h, w, lse, g))
+
+
+@pytest.mark.parametrize("n,v,d", [(2048, 50257, 768), (333, 1029, 96)])
+def test_cce_dw_is_deterministic_and_ignores_the_tf32_switch(cuda, n, v, d):
+    """One block per vocab tile walks the h rows in order, so two
+    launches give the same bits; the TF32 switch is never read."""
+    h, w, _ = _cce_inputs(cuda, n, v, d, seed=41)
+    g = _rand(cuda, n, seed=42)
+    lse = cce_lse_plain(h, w)
+    first = cce_dw(h, w, lse, g)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        flag_on = cce_dw(h, w, lse, g)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    again = cce_dw(h, w, lse, g)
+    assert torch.equal(first, again)
+    assert torch.equal(first, flag_on)
+
+
+@pytest.mark.parametrize("d,rows", [(96, 32), (512, 32), (768, 32),
+                                    (1000, 16)])
+def test_cce_dw_kernel_usage(cuda, d, rows):
+    use = dw_kernel_usage(d)
     assert use["rows"] == rows and use["local_bytes"] == 0
     assert use["shared_bytes"] <= 227 * 1024
 

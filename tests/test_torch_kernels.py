@@ -15,10 +15,11 @@ from bigdl_tpu.kernels.flash_attention import flash_attention as jax_flash
 from bigdl_tpu.kernels.quantized_matmul import (
     int8_matmul as jax_int8_matmul,
     quantized_linear_forward as jax_qlinear)
-from bigdl_tpu_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+from bigdl_tpu_torch.kernels.flash_attention import (
+    NEG_INF, flash_attention, flash_attention_plain)
 from bigdl_tpu_torch.kernels.quantized_matmul import (
     int8_matmul, quantized_linear_forward)
+from bigdl_tpu_torch.nn.attention import causal_mask
 from torch_parity import t
 
 # fp32 attention: the Pallas online softmax and the dense plain version
@@ -228,3 +229,73 @@ def test_cce_dh_3xtf32_meets_the_tolerance_and_tf32_misses_it(hi):
     print(f"dh of max: 3xTF32 {err3:.3e}, single TF32 {err1:.3e}")
     assert err3 <= CCE_TOL / 10, err3
     assert err1 > CCE_TOL * 10, err1
+
+
+@pytest.mark.parametrize("hi", [_tf32, _tf32_toward_zero],
+                         ids=["hi_nearest", "hi_toward_zero"])
+def test_cce_dw_3xtf32_meets_the_tolerance_and_tf32_misses_it(hi):
+    """The same for dw (K3c, the dh body with the roles of h and w
+    swapped): P^T h with P's lse and g taken by h row. Held against the
+    plain version evaluated in float64: the fp32 plain dw on the CPU is
+    itself ~1.4e-06 of its largest value away from it (P^T h sums rows
+    of mixed sign in fp32), more than the split's own error."""
+    from bigdl_tpu_torch.kernels.cut_cross_entropy import (cce_dw_plain,
+                                                           cce_lse_plain)
+    n, v, d = 256, 4096, 768
+    r = np.random.RandomState(1)
+    h = torch.from_numpy(r.randn(n, d).astype(np.float32))
+    w = torch.from_numpy((r.randn(v, d) / np.sqrt(d)).astype(np.float32))
+    g = torch.from_numpy(r.randn(n).astype(np.float32))
+    lse = cce_lse_plain(h, w)
+    want = cce_dw_plain(h.double(), w.double(), lse.double(), g.double())
+
+    def dw(mm):
+        p = torch.exp(mm(w, h.T) - lse[None, :]) * g[None, :]   # (V, N)
+        return mm(p, h)
+
+    def rel(x):
+        return ((x.double() - want).abs().max() / want.abs().max()).item()
+    err3 = rel(dw(lambda a, b: _mm_3xtf32(a, b, hi)))
+    err1 = rel(dw(_mm_tf32))
+    print(f"dw of max: 3xTF32 {err3:.3e}, single TF32 {err1:.3e}, the fp32 "
+          f"plain dw {rel(cce_dw_plain(h, w, lse, g)):.3e}")
+    assert err3 <= CCE_TOL / 10, err3
+    assert err1 > CCE_TOL * 10, err1
+
+
+# --------------------------------------------- flash attention's products
+# The CUDA flash-attention kernel (K2) runs S = Q K^T and O = P V on the
+# tensor cores in 3xTF32 with the split above. This emulates its
+# arithmetic on the CPU (P = exp(S - row max) unnormalised, O = P V / l,
+# the products in float64 after the split) against the fp32 plain
+# version, with the error measured as the tolerance FLASH_TOL reads it,
+# max |got - want| / (1 + |want|). The tensor cores' truncating fp32
+# accumulation is not modelled (the kernel sums each 64 columns of d and
+# each key tile from zero to bound it); the card tests hold the kernel
+# itself to FLASH_TOL.
+def _attention(q, k, v, causal, mm):
+    s = mm(q, k.transpose(-1, -2)) / np.sqrt(q.shape[-1])
+    if causal:
+        s = torch.where(causal_mask(q.shape[2], k.shape[2]), s,
+                        torch.full((), NEG_INF))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return mm(e, v) / e.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("hi", [_tf32, _tf32_toward_zero],
+                         ids=["hi_nearest", "hi_toward_zero"])
+@pytest.mark.parametrize("tq,tk,d,causal", [(128, 128, 64, True),
+                                            (50, 77, 256, False)])
+def test_flash_3xtf32_meets_the_tolerance_and_tf32_misses_it(hi, tq, tk, d,
+                                                             causal):
+    q, k, v = (t(a) for a in _qkv(b=2, h=2, tq=tq, tk=tk, d=d, seed=d))
+    want = flash_attention_plain(q, k, v, causal=causal)
+
+    def err(got):
+        return ((got - want).abs() / (1 + want.abs())).max().item()
+    err3 = err(_attention(q, k, v, causal, lambda a, b: _mm_3xtf32(a, b, hi)))
+    err1 = err(_attention(q, k, v, causal, _mm_tf32))
+    print(f"attention Tq={tq} Tk={tk} d={d}: max|err|/(1+|plain|) 3xTF32 "
+          f"{err3:.3e}, single TF32 {err1:.3e}")
+    assert err3 <= FLASH_TOL / 10, err3
+    assert err1 > FLASH_TOL, err1

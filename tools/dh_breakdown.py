@@ -1,27 +1,35 @@
-"""Where the time of K3b (cut cross-entropy's dh kernel) goes.
+"""Where the time and the error of K3b and K3c (cut cross-entropy's dh and
+dw kernels, one tensor-core body with the roles of h and w swapped) go.
 
     python tools/dh_breakdown.py
 
 A development tool, not part of the package. Rebuilds
-bigdl_tpu_torch/kernels/csrc/cut_cross_entropy.cu with one part of K3b's work taken out
-at a time, and times each build on the card at the pipelined LM's shape
-(N = 2048, V = 50257, D = 768, CUDA events, 10 launches after 2) with
-its error against the plain version:
+bigdl_tpu_torch/kernels/csrc/cut_cross_entropy.cu with one part of the
+body's work taken out or changed at a time, and times dh and dw of each
+build on the card at the pipelined LM's shape (N = 2048, V = 50257, D =
+768, g = 1/N, CUDA events, 10 launches after 2), with each one's error
+against the fp32 plain version and against the plain version evaluated
+in float64 (max |x - ref| / max |ref|):
 
-  kernel      the source as it is;
-  no_refill   the w tile is never refilled (the time without the copies;
-              dh is wrong);
-  no_split    operands go to the MMAs unsplit, lo = hi (the time without
-              the hi/lo split; dh is wrong);
-  one_mma     one TF32 MMA where 3xTF32 takes three (dh has single-TF32
-              error);
-  no_promote  the P.w product accumulates in the MMAs over the whole vocab
-              chunk instead of being summed per tile and added in fp32
-              (the arithmetic is right: the error shows what the tensor
-              cores' truncating accumulation costs).
+  kernel        the source as it is;
+  no_refill     the walker tile is never refilled (the time without the
+                copies; the results are wrong);
+  no_split      operands go to the MMAs unsplit, lo = hi (the time
+                without the hi/lo split; the results are wrong);
+  one_mma       one TF32 MMA where 3xTF32 takes three (single-TF32
+                error);
+  no_promote    the P.w product accumulates in the MMAs over the whole
+                walk instead of being summed per tile and added in fp32
+                (the arithmetic is right: the error shows what the
+                tensor cores' truncating accumulation costs);
+  s_every_step  S is added in fp32 after every 8-deep step of D instead
+                of every SK (4);
+  s_unpromoted  each warp's share of S accumulates in the MMAs over all
+                of its columns.
 
-Each variant is a text edit of the kernel's source; an edit that no
-longer matches it stops the tool with the text it looked for. Each
+Each variant is a text edit of the kernel's source or of the header it
+shares with K2 (csrc/tf32x3.cuh); an edit that does not match exactly
+one place in them stops the tool with the text it looked for. Each
 variant is compiled by nvcc into bigdl_tpu_torch/_build/dh_breakdown/,
 all at once.
 CUDA only; prints one line per variant and the card's name and power
@@ -49,6 +57,8 @@ MMA3 = ("  mma_tf32(c, al, bh0, bh1);\n"
         "  mma_tf32(c, ah, bl0, bl1);\n")
 DH_MMA = "mma3(tmp[mt][i], ah[mt], al[mt], bh0, bh1, bl0, bl1);"
 
+SK = "constexpr int SK = 4; "
+
 VARIANTS = {
     "kernel": [],
     "no_refill": [("if (ng + 4 == NTW && t + 1 < t1) {", "if (false) {")],
@@ -56,21 +66,29 @@ VARIANTS = {
     "one_mma": [(MMA3, "")],
     # tmp stays zero, so the promotion adds nothing
     "no_promote": [(DH_MMA, DH_MMA.replace("tmp[mt][i]", "acc[mt][ng + i]"))],
+    "s_every_step": [(SK, SK.replace("4", "1"))],
+    # one group of all NTW steps
+    "s_unpromoted": [("kg < NTW; kg += SK", "kg < 1; kg += SK"),
+                     ("ks < kg + SK; ++ks", "ks < NTW; ++ks")],
 }
 SHAPE = (2048, 50257, 768)
 
 
-def build(name: str, source: str):
-    """Compile one variant; returns (name, library path, nvcc's log)."""
+def build(name: str, sources: dict):
+    """Compile one variant of `sources` ({file name: text}); returns
+    (name, library path, nvcc's log)."""
+    sources = dict(sources)
     for old, new in VARIANTS[name]:
-        if source.count(old) != 1:
+        hits = [f for f, text in sources.items() if old in text]
+        if len(hits) != 1 or sources[hits[0]].count(old) != 1:
             raise RuntimeError(f"{name}: the edit no longer matches the "
                                f"source: {old!r}")
-        source = source.replace(old, new)
-    out = _native.BUILD_DIR / "dh_breakdown"
+        sources[hits[0]] = sources[hits[0]].replace(old, new)
+    out = _native.BUILD_DIR / "dh_breakdown" / name
     out.mkdir(parents=True, exist_ok=True)
-    src, lib = out / f"{name}.cu", out / f"{name}.so"
-    src.write_text(source)
+    for f, text in sources.items():
+        (out / f).write_text(text)
+    src, lib = out / "cut_cross_entropy.cu", out / f"{name}.so"
     res = subprocess.run([_native.nvcc(), *_native.NVCC_FLAGS, "-o",
                           str(lib), str(src)], capture_output=True, text=True)
     if res.returncode:
@@ -85,7 +103,7 @@ def usage(log: str) -> str:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             entry = ln
-        elif "registers" in ln and "cce_dh_kernelILi2ELi12E" in entry:
+        elif "registers" in ln and "cce_grad_kernelILi2ELi12ELb0E" in entry:
             return ln.split(":")[-1].strip()
     return "not found"
 
@@ -96,9 +114,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("dh_breakdown: no CUDA device is visible", file=sys.stderr)
         return 2
-    source = (_native.CSRC / "cut_cross_entropy.cu").read_text()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sources = {f: (_native.CSRC / f).read_text()
+               for f in ("cut_cross_entropy.cu", "tf32x3.cuh")}
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = list(pool.map(lambda v: build(v, source), VARIANTS))
+        built = list(pool.map(lambda v: build(v, sources), VARIANTS))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     n, v, d = SHAPE
@@ -106,34 +126,54 @@ def main() -> int:
     w = torch.randn(v, d, generator=gen, device=dev) * d ** -0.5
     g = torch.full((n,), 1.0 / n, device=dev)
     lse = cce.cce_lse_plain(h, w)
-    want = cce.cce_dh_plain(h, w, lse, g)
+    plain = {"dh": cce.cce_dh_plain(h, w, lse, g),
+             "dw": cce.cce_dw_plain(h, w, lse, g)}
+    p64 = cce._probs(h.double(), w.double(), lse.double(), g.double())
+    exact = {"dh": p64 @ w.double(), "dw": p64.T @ h.double()}
+    del p64
     splits = cce.dh_splits(n, v, d, torch.cuda.get_device_properties(
         dev).multi_processor_count)
-    dh = torch.empty_like(h)
+    out = {"dh": torch.empty_like(h), "dw": torch.empty_like(w)}
     scratch = torch.empty(splits * n * d, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
-    print(f"K3b at N={n} V={v} D={d}, {splits} vocab chunks", flush=True)
-    for name, lib, log in built:
-        fn = ctypes.CDLL(str(lib)).bigdl_cce_dh_f32
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
 
-        def run():
-            _native.check(fn(h.data_ptr(), w.data_ptr(), lse.data_ptr(),
-                             g.data_ptr(), dh.data_ptr(), scratch.data_ptr(),
-                             n, v, d, splits,
-                             *_native.device_and_stream(dev)), name)
-        for _ in range(2):
-            run()
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        for _ in range(10):
-            run()
-        t1.record()
-        t1.synchronize()
-        err = ((dh - want).abs().max() / want.abs().max()).item()
-        print(f"  {name:10s} {t0.elapsed_time(t1) / 10:.4f} ms  max|dh - "
-              f"plain| / max|plain| {err:.3e}  ptxas: {usage(log)}",
+    def rel(x, ref):
+        return ((x.double() - ref.double()).abs().max()
+                / ref.abs().max()).item()
+
+    print(f"K3b and K3c at N={n} V={v} D={d}, g = 1/N, K3b in {splits} "
+          f"vocab chunks; the plain fp32 versions against float64: dh "
+          f"{rel(plain['dh'], exact['dh']):.3e}, dw "
+          f"{rel(plain['dw'], exact['dw']):.3e}", flush=True)
+    for name, lib, log in built:
+        lib_ = ctypes.CDLL(str(lib))
+        fdh, fdw = lib_.bigdl_cce_dh_f32, lib_.bigdl_cce_dw_f32
+        fdh.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        fdw.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fdh.restype = fdw.restype = ctypes.c_int
+        runs = {
+            "dh": lambda: _native.check(fdh(
+                h.data_ptr(), w.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                out["dh"].data_ptr(), scratch.data_ptr(), n, v, d, splits,
+                *_native.device_and_stream(dev)), name),
+            "dw": lambda: _native.check(fdw(
+                h.data_ptr(), w.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                out["dw"].data_ptr(), n, v, d,
+                *_native.device_and_stream(dev)), name)}
+        parts = []
+        for k, run in runs.items():
+            for _ in range(2):
+                run()
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            for _ in range(10):
+                run()
+            t1.record()
+            t1.synchronize()
+            parts.append(f"{k} {t0.elapsed_time(t1) / 10:.4f} ms, of max "
+                         f"vs plain {rel(out[k], plain[k]):.3e}, vs float64 "
+                         f"{rel(out[k], exact[k]):.3e}")
+        print(f"  {name:12s} {'; '.join(parts)}; ptxas: {usage(log)}",
               flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
