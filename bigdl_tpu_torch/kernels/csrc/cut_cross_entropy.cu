@@ -17,18 +17,19 @@
 // that is 0.96, 1.92 and 1.92 ms; with fp32 FMAs outside them (67
 // TFLOP/s), 2.36, 4.72 and 4.72 ms.
 //
-// K3a uses fp32 FMAs. K3b and K3c run on the tensor cores, one body
-// with the roles of h and w swapped: both products of each are
-// mma.sync m16n8k8 TF32 MMAs in the error-compensated split CUTLASS
-// calls OpMultiplyAddFastF32: a = hi + lo with hi = a rounded toward
-// zero to TF32 and lo = the rest rounded to nearest, a b ~ hi hi' +
-// hi lo' + lo hi'. That keeps dh and dw within a few 1e-6 of their
-// fp32 values where a single TF32 product moves them by ~4e-4
+// All three run on the tensor cores (K3b and K3c one body with the roles
+// of h and w swapped): every product is mma.sync m16n8k8 TF32 MMAs in
+// the error-compensated split CUTLASS calls OpMultiplyAddFastF32: a =
+// hi + lo with hi = a rounded toward zero to TF32 and lo = the rest
+// rounded to nearest, a b ~ hi hi' + hi lo' + lo hi'. That keeps dh and
+// dw within a few 1e-6 of their fp32 values where a single TF32 product
+// moves them by ~4e-4, and lse within ~1e-7 where one moves it by ~5e-6
 // (chip_smoke.py and tests/test_torch_kernels.py check both). The three
 // MMAs for one are what holds them back: with one TF32 MMA in their
 // place dh and dw take 3.49 and 3.63 ms at the shape above where they
 // take 6.14 and 6.02 (tools/dh_breakdown.py, H100 80GB HBM3 at 700 W);
-// wgmma is the step past mma.sync's rate.
+// wgmma is the step past mma.sync's rate. Any D >= 1 runs: K3a streams
+// D, and K3b and K3c past 1024 columns take a body that cuts D.
 //
 // Design, and what it does about the TPU form:
 //  * The Pallas kernels jnp.pad w to a multiple of the vocab block on
@@ -75,10 +76,33 @@
 //    rows and their dw, walks 32-row tiles of h, and takes lse and g of
 //    each probability from its walker (h) row instead of its owner row.
 //    Everything else, per-tile promotion included, is K3b's.
-//  * K3a: an owner tile of 64 h rows walks 128-row tiles of w: S over D
-//    in 32-deep slices (shared memory, double-buffered by cp.async),
-//    256 threads = 8 warps x 32 lanes; a warp owns 8 owner rows, a lane
-//    4 walker columns strided by 32.
+//  * K3a (lse::cce_lse_kernel) is a GEMM tile with an online-logsumexp
+//    epilogue: a block computes S for 128 h rows x 128 vocab rows, 8
+//    warps of 64 x 32, and walks the vocab tiles of its chunk. Both
+//    operands stream over D in 64-deep slices through a ring of three
+//    cp.async stages (zero fill past N, V and D; 192 KB), so no buffer
+//    holds a whole row and nothing caps D; a resident pre-split h tile
+//    would not fit (128 rows x 768 x 2 parts is 786 KB), and h (6.3 MB
+//    at the path's shape) is re-read from L2. The 16-byte chunks of a
+//    slice's rows are XOR-swizzled by row, so the ldmatrix loads of both
+//    operands are free of bank conflicts; both split as they load. The
+//    product of each 32 columns is summed from zero in the MMAs and
+//    added to S in fp32 (summed over all of D in the MMAs, S moved lse
+//    by 5.7e-07 of its largest value from float64; promoted, 1.0e-07).
+//    Once per vocab tile, columns past V go to -inf, each thread takes
+//    the max of its 8 columns for each of its 8 rows, the quad shares it
+//    through __shfl_xor_sync, and the running (max, sum) of each row is
+//    updated in registers; at the end the quad adds its sums and the
+//    four warps that share rows merge through shared memory in warp
+//    order. Row tiles are the grid's fastest axis, so the row tiles
+//    that share a chunk of w run in one wave and w (154 MB, beyond the 50
+//    MB L2) comes from device memory about once.
+//  * K3b and K3c past D = 1024 (tc::cce_grad_wide_kernel): the register
+//    file holds at most 1024 columns of a 16-row gradient, and a 32-row
+//    walker tile of 2048 columns (256 KB) is more than a block's shared
+//    memory. A grid axis cuts the gradient into 1024-column chunks; each
+//    block computes S over all of D, copying D's chunks in turn, and
+//    accumulates only its own chunk of dh or dw.
 //  * Sums are fp32 and in a fixed order; exp and log are the accurate
 //    expf/logf (no fast math). Nothing reads PyTorch's TF32 switches.
 
@@ -91,77 +115,7 @@
 
 namespace {
 
-constexpr int NT = 256;       // threads per block
-constexpr int RG = 8;         // warps = owner row groups
-constexpr int BW = 128;       // walker rows per tile (4 per lane)
-constexpr int BK = 32;        // depth of one staged slice of D
-constexpr int BSTR = BW + 1;  // walker slice stride: conflict-free copies
 constexpr float NEG_INF = -1e30f;
-
-template <int RPT>
-struct Tile {
-  static constexpr int BO = RG * RPT;           // owner rows per block
-  static constexpr int OSTR = BO + 4;           // owner slice stride
-  static constexpr int OS = BK * OSTR;          // owner slice, [k][row]
-  static constexpr int BS = BK * BSTR;          // walker slice, [k][row]
-  static constexpr int LSE_FLOATS = 2 * OS + 2 * BS;
-};
-
-template <int RPT>
-__device__ __forceinline__ void load_rows(const float* p, float (&a)[RPT]) {
-  static_assert(RPT % 4 == 0, "whole float4 loads");
-#pragma unroll
-  for (int i = 0; i < RPT; i += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p + i);
-    a[i] = x.x; a[i + 1] = x.y; a[i + 2] = x.z; a[i + 3] = x.w;
-  }
-}
-
-// Copy the [k0, k0 + BK) slice of owner rows [o0, o0 + BO) and of walker
-// rows [j0, j0 + BW) into shared memory, transposed to [k][row]; zeros
-// past n_owner, n_walker or d.
-template <int RPT>
-__device__ __forceinline__ void load_slice(float* os, float* bs,
-                                           const float* owner,
-                                           const float* walker, int o0,
-                                           int n_owner, int j0, int n_walker,
-                                           int k0, int d, int tid) {
-  using T = Tile<RPT>;
-#pragma unroll
-  for (int idx = tid; idx < T::BO * BK; idx += NT) {
-    const int r = idx / BK, kk = idx % BK;
-    const int gr = o0 + r, gk = k0 + kk;
-    const bool ok = gr < n_owner && gk < d;
-    cp4(os + kk * T::OSTR + r, ok ? owner + (size_t)gr * d + gk : owner, ok);
-  }
-#pragma unroll
-  for (int idx = tid; idx < BW * BK; idx += NT) {
-    const int j = idx / BK, kk = idx % BK;
-    const int gj = j0 + j, gk = k0 + kk;
-    const bool ok = gj < n_walker && gk < d;
-    cp4(bs + kk * BSTR + j, ok ? walker + (size_t)gj * d + gk : walker, ok);
-  }
-}
-
-// S[i][q] += sum_k owner[row i] [k] * walker[col q] [k] over one slice.
-template <int RPT>
-__device__ __forceinline__ void mma_slice(const float* os, const float* bs,
-                                          float (&s)[RPT][4], int ry,
-                                          int cx) {
-  using T = Tile<RPT>;
-#pragma unroll 8
-  for (int kk = 0; kk < BK; ++kk) {
-    float a[RPT];
-    load_rows<RPT>(os + kk * T::OSTR + ry * RPT, a);
-    float b[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) b[q] = bs[kk * BSTR + cx + 32 * q];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[i][q] = fmaf(a[i], b[q], s[i][q]);
-  }
-}
 
 __device__ __forceinline__ void merge(float& m, float& s, float m2,
                                       float s2) {
@@ -170,85 +124,225 @@ __device__ __forceinline__ void merge(float& m, float& s, float m2,
   m = mn;
 }
 
-// K3a. Block (row tile x, vocab chunk y): the running (max, sum) of
-// exp(h . w) over the chunk for each of its rows -> pm, ps [y][n].
-template <int RPT>
-__global__ void __launch_bounds__(NT)
-cce_lse_kernel(const float* __restrict__ h, const float* __restrict__ w,
-               float* __restrict__ pm, float* __restrict__ ps, int n, int v,
-               int d) {
-  using T = Tile<RPT>;
-  extern __shared__ __align__(16) float smem[];
-  float* os = smem;
-  float* bs = smem + 2 * T::OS;
-  const int tid = threadIdx.x, ry = tid / 32, cx = tid % 32;
-  const int o0 = blockIdx.x * T::BO;
-  const int tiles = (v + BW - 1) / BW;
-  const int t0 = (int)((long long)blockIdx.y * tiles / gridDim.y);
-  const int t1 = (int)((long long)(blockIdx.y + 1) * tiles / gridDim.y);
-  const int nks = (d + BK - 1) / BK;
+// K3a on the tensor cores (see the head note): a GEMM tile of BM h rows
+// x BN vocab rows, 8 warps of WM x WN, both operands streamed over D in
+// BK-deep slices through a ring of STAGES cp.async stages, S promoted
+// every PK columns.
+namespace lse {
 
-  float m[RPT], sum[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) { m[i] = NEG_INF; sum[i] = 0.f; }
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3;
+constexpr int PK = 32;                       // S promoted every PK columns
+constexpr int WM = 64, WN = 32;              // a warp's tile of S
+constexpr int MT = WM / 16, NT = WN / 8;     // its MMA tiles
+constexpr int WARPS_N = BN / WN;
+constexpr int NTH = 32 * (BM / WM) * WARPS_N;
+constexpr int STAGE = (BM + BN) * BK;        // floats a stage
+constexpr int SMEM_BYTES = STAGES * STAGE * (int)sizeof(float);
 
-  int it = 0;   // slices issued so far: slice `it` lives in buffer it & 1
-  if (t0 < t1) load_slice<RPT>(os, bs, h, w, o0, n, t0 * BW, v, 0, d, tid);
-  cp_commit();
-  for (int t = t0; t < t1; ++t) {
-    const int j0 = t * BW;
-    float s[RPT][4];
+// Index of (r, c) in a [rows][BK] slice: the 16-byte chunks of a row are
+// XOR-swizzled by r % 8, so that ldmatrix's eight 16-byte rows (eight
+// consecutive r, one chunk) touch 32 distinct banks.
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * BK + (((c >> 2) ^ (r & 7)) << 2) + (c & 3);
+}
+
+// Copy columns [k0, k0 + BK) of rows [g0, g0 + ROWS) of src (n x d,
+// row-major) into dst; zeros past n and d. `vec`: d % 4 == 0 and src
+// 16-byte aligned.
+template <int ROWS>
+__device__ __forceinline__ void load_slice(float* dst, const float* src,
+                                           int g0, int n, int k0, int d,
+                                           bool vec, int tid) {
+  if (vec) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[i][q] = 0.f;
-    for (int k = 0; k < nks; ++k, ++it) {
-      const int nb = (it + 1) & 1;
-      if (k + 1 < nks)
-        load_slice<RPT>(os + nb * T::OS, bs + nb * T::BS, h, w, o0, n, j0, v,
-                        (k + 1) * BK, d, tid);
-      else if (t + 1 < t1)
-        load_slice<RPT>(os + nb * T::OS, bs + nb * T::BS, h, w, o0, n,
-                        j0 + BW, v, 0, d, tid);
-      cp_commit();
-      cp_wait<1>();
-      __syncthreads();
-      mma_slice<RPT>(os + (it & 1) * T::OS, bs + (it & 1) * T::BS, s, ry, cx);
-      __syncthreads();
+    for (int i = 0; i < ROWS * BK / 4 / NTH; ++i) {
+      const int q = tid + NTH * i, r = q / (BK / 4), c = 4 * (q % (BK / 4));
+      const bool ok = g0 + r < n && k0 + c < d;
+      cp16(dst + sw(r, c), ok ? src + (size_t)(g0 + r) * d + k0 + c : src,
+           ok);
     }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      float tm = NEG_INF;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (j0 + cx + 32 * q < v) tm = fmaxf(tm, s[i][q]);
-      if (tm > NEG_INF) {     // at least one column of this tile is real
-        const float mn = fmaxf(m[i], tm);
-        float add = 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (j0 + cx + 32 * q < v) add += expf(s[i][q] - mn);
-        sum[i] = sum[i] * expf(m[i] - mn) + add;
-        m[i] = mn;
-      }
-    }
-  }
-  cp_wait<0>();
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, sum[i], off);
-      merge(m[i], sum[i], m2, s2);
-    }
-    const int r = o0 + ry * RPT + i;
-    if (cx == 0 && r < n) {
-      pm[(size_t)blockIdx.y * n + r] = m[i];
-      ps[(size_t)blockIdx.y * n + r] = sum[i];
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < ROWS * BK / NTH; ++i) {
+      const int q = tid + NTH * i, r = q / BK, c = q % BK;
+      const bool ok = g0 + r < n && k0 + c < d;
+      cp4(dst + sw(r, c), ok ? src + (size_t)(g0 + r) * d + k0 + c : src,
+          ok);
     }
   }
 }
+
+// Block (row tile x, vocab chunk y): the running (max, sum) of exp(h . w)
+// over the chunk's vocab tiles for each of its rows -> pm, ps [y][n].
+__global__ void __launch_bounds__(NTH, 1)
+cce_lse_kernel(const float* __restrict__ h, const float* __restrict__ w,
+               float* __restrict__ pm, float* __restrict__ ps, int n, int v,
+               int d) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int gq = lane >> 2, tq = lane & 3;
+  // the row and column offsets this lane addresses for ldsm4: in an A
+  // fragment (16 x 8), and in two B fragments (8 + 8 rows x 8)
+  const int ar = (lane & 7) + 8 * ((lane >> 3) & 1), ac = 4 * (lane >> 4);
+  const int br = (lane & 7) + 8 * (lane >> 4), bc = 4 * ((lane >> 3) & 1);
+  const int o0 = blockIdx.x * BM;
+  const int tiles = (v + BN - 1) / BN;
+  const int t0 = (int)((long long)blockIdx.y * tiles / gridDim.y);
+  const int t1 = (int)((long long)(blockIdx.y + 1) * tiles / gridDim.y);
+  const int nks = (d + BK - 1) / BK;
+  const int total = (t1 - t0) * nks;   // slices: nks for each vocab tile
+  const bool vec = d % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w)) &
+       15) == 0;
+
+  // slice `it` (vocab tile t0 + it / nks, columns (it % nks) BK on) goes
+  // to stage it % STAGES
+  auto issue = [&](int it) {
+    float* st = smem + (it % STAGES) * STAGE;
+    const int j0 = (t0 + it / nks) * BN, k0 = (it % nks) * BK;
+    load_slice<BM>(st, h, o0, n, k0, d, vec, tid);
+    load_slice<BN>(st + BM * BK, w, j0, v, k0, d, vec, tid);
+  };
+
+  // running max and sum of rows 16 mt + gq + 8 hf of the warp's tile,
+  // over this thread's columns (the max is shared by the quad)
+  float m[MT][2], sum[MT][2];
+  float s[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) { m[mt][hf] = NEG_INF; sum[mt][hf] = 0.f; }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s[mt][nt][q] = 0.f;
+  }
+
+#pragma unroll 1
+  for (int it = 0; it < STAGES - 1; ++it) {
+    if (it < total) issue(it);
+    cp_commit();
+  }
+#pragma unroll 1
+  for (int it = 0; it < total; ++it) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();   // slice it landed; every warp is past slice it - 1
+    if (it + STAGES - 1 < total) issue(it + STAGES - 1);
+    cp_commit();
+    const float* as = smem + (it % STAGES) * STAGE + wm * WM * BK;
+    const float* bs = smem + (it % STAGES) * STAGE + BM * BK + wn * WN * BK;
+    // each PK columns' product, summed from zero in the MMAs (the tensor
+    // cores' fp32 accumulation truncates) and added to S in fp32
+#pragma unroll 1
+    for (int k0 = 0; k0 < BK; k0 += PK) {
+      float sk[MT][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) sk[mt][nt][q] = 0.f;
+#pragma unroll
+      for (int kk = k0; kk < k0 + PK; kk += 8) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t x[4];
+          ldsm4(as + sw(16 * mt + ar, kk + ac), x);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            split(__uint_as_float(x[q]), ah[mt][q], al[mt][q]);
+        }
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t y[4];   // b0, b1 of MMA column tile 2 np, then 2 np + 1
+          ldsm4(bs + sw(16 * np + br, kk + bc), y);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split(__uint_as_float(y[2 * e]), bh0, bl0);
+            split(__uint_as_float(y[2 * e + 1]), bh1, bl1);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma3(sk[mt][2 * np + e], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) s[mt][nt][q] += sk[mt][nt][q];
+    }
+    if ((it + 1) % nks) continue;
+    // the vocab tile's last slice: fold its S into the running (max, sum)
+    // of each row, columns past v at -inf
+    const int jw = (t0 + it / nks) * BN + wn * WN + 2 * tq;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float tm = NEG_INF;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[mt][nt][2 * hf + e];
+            if (jw + 8 * nt + e >= v) x = NEG_INF;
+            tm = fmaxf(tm, x);
+          }
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+        if (tm > NEG_INF) {   // the same for the whole warp: a real column
+          const float mn = fmaxf(m[mt][hf], tm);
+          float add = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) add += expf(s[mt][nt][2 * hf + e] - mn);
+          sum[mt][hf] = sum[mt][hf] * expf(m[mt][hf] - mn) + add;
+          m[mt][hf] = mn;
+        }
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s[mt][nt][q] = 0.f;
+  }
+  cp_wait<0>();
+  __syncthreads();   // the ring is free: it takes the warps' (max, sum)
+  // the quad shares its max: add its sums, then merge the WARPS_N warps
+  // that hold the same rows in warp order
+  float* red = smem;   // [WARPS_N][BM][2]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float x = sum[mt][hf];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (tq == 0) {
+        const int r = wm * WM + 16 * mt + gq + 8 * hf;
+        red[2 * (wn * BM + r)] = m[mt][hf];
+        red[2 * (wn * BM + r) + 1] = x;
+      }
+    }
+  __syncthreads();
+  if (tid < BM && o0 + tid < n) {
+    float mm = NEG_INF, ss = 0.f;
+#pragma unroll
+    for (int q = 0; q < WARPS_N; ++q)
+      merge(mm, ss, red[2 * (q * BM + tid)], red[2 * (q * BM + tid) + 1]);
+    pm[(size_t)blockIdx.y * n + o0 + tid] = mm;
+    ps[(size_t)blockIdx.y * n + o0 + tid] = ss;
+  }
+}
+
+}  // namespace lse
 
 // K3a, second pass: merge the chunks of each row in chunk order.
 __global__ void cce_lse_merge(const float* __restrict__ pm,
@@ -293,24 +387,28 @@ __device__ __forceinline__ int sat(int r, int c) {
 }
 
 // One warp's copy: tile rows [r0, r0 + cnt) (global row g0 + r of src,
-// `rows` x d row-major), columns [c0, c0 + DW), into dst; zeros past
-// `rows` and d. `vec`: d % 4 == 0 and src 16-byte aligned.
+// `rows` x d row-major), tile columns [c0, c0 + DW) from source columns
+// base + c0 on, into dst; zeros past `rows` and d. `vec`: d % 4 == 0 and
+// src 16-byte aligned.
 template <int DP, int DW>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int g0, int rows, int r0, int cnt,
-                                          int c0, int d, bool vec, int lane) {
+                                          int c0, int base, int d, bool vec,
+                                          int lane) {
   if (vec) {
     constexpr int CPR = DW / 4;
     for (int i = lane; i < cnt * CPR; i += 32) {
       const int r = r0 + i / CPR, c = c0 + 4 * (i % CPR);
-      const bool ok = g0 + r < rows && c < d;
-      cp16(dst + at<DP>(r, c), ok ? src + (size_t)(g0 + r) * d + c : src, ok);
+      const bool ok = g0 + r < rows && base + c < d;
+      cp16(dst + at<DP>(r, c),
+           ok ? src + (size_t)(g0 + r) * d + base + c : src, ok);
     }
   } else {
     for (int i = lane; i < cnt * DW; i += 32) {
       const int r = r0 + i / DW, c = c0 + i % DW;
-      const bool ok = g0 + r < rows && c < d;
-      cp4(dst + at<DP>(r, c), ok ? src + (size_t)(g0 + r) * d + c : src, ok);
+      const bool ok = g0 + r < rows && base + c < d;
+      cp4(dst + at<DP>(r, c),
+          ok ? src + (size_t)(g0 + r) * d + base + c : src, ok);
     }
   }
 }
@@ -320,6 +418,202 @@ struct Geometry {
   static constexpr int BO = 16 * MT, DW = 8 * NTW, DP = NW * DW;
   static constexpr int SMEM_BYTES = (BO * DP + BV * DP + NW * BO * PS) * 4;
 };
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&a)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[mt][nt][q] = 0.f;
+}
+
+// Once this warp's copies of its columns [c0, c0 + DW) of the BO owner
+// rows in os have landed, store them pre-split (hi + lo, exact in fp32),
+// so that their fragments split in two operations.
+template <int BO, int DP, int DW>
+__device__ __forceinline__ void presplit_owner(float* os, int c0, int lane) {
+  cp_wait<0>();
+  __syncwarp();
+  for (int i = lane; i < BO * DW; i += 32) {
+    float& x = os[at<DP>(i / DW, c0 + i % DW)];
+    x = presplit(x);
+  }
+  __syncwarp();
+}
+
+// s += this warp's share of S = own . walk^T (rows 16 mt + gq (+ 8),
+// columns 8 nt + 2 tq (+ 1)): the sum over its columns [c0, c0 + 8 NTW)
+// of the owner rows os (pre-split) and the walker tile ws, SK 8-deep
+// steps at a time summed from zero in the MMAs and added in fp32. Summed
+// over all NTW steps in the MMAs, S's truncation moved dw by ~4e-6 of
+// its largest value (dw sums h rows of mixed sign) and dh by ~2.5e-6;
+// four steps at a time ~1.9e-6 and ~1.3e-6 for 0.1-0.3 ms; every step
+// ~0.9e-6 and ~1.1e-6 for ~0.5 ms (tools/dh_breakdown.py).
+template <int MT, int NTW, int DP>
+__device__ __forceinline__ void s_share(float (&s)[MT][BV / 8][4],
+                                        const float* os, const float* ws,
+                                        int c0) {
+  const int lane = threadIdx.x & 31;
+  // the row and column offsets this lane addresses for ldsm4: in an A
+  // fragment (16 x 8), and in two B fragments (8 + 8 rows x 8)
+  const int ar = (lane & 7) + 8 * ((lane >> 3) & 1), ac = 4 * (lane >> 4);
+  const int br = (lane & 7) + 8 * (lane >> 4), bc = 4 * ((lane >> 3) & 1);
+#pragma unroll (4 / SK)
+  for (int kg = 0; kg < NTW; kg += SK) {
+    float sx[MT][BV / 8][4];
+    zero(sx);
+#pragma unroll
+    for (int ks = kg; ks < kg + SK; ++ks) {
+      const int k0 = c0 + 8 * ks;
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t x[4];
+        ldsm4(os + at<DP>(16 * mt + ar, k0 + ac), x);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split_exact(__uint_as_float(x[q]), ah[mt][q], al[mt][q]);
+      }
+#pragma unroll
+      for (int np = 0; np < BV / 16; ++np) {
+        uint32_t y[4];   // b0, b1 of MMA column tile 2 np, then 2 np + 1
+        ldsm4(ws + at<DP>(16 * np + br, k0 + bc), y);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(__uint_as_float(y[2 * e]), bh0, bl0);
+          split(__uint_as_float(y[2 * e + 1]), bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma3(sx[mt][2 * np + e], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < BV / 8; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s[mt][nt][q] += sx[mt][nt][q];
+  }
+}
+
+// The walker tile's probabilities from the warps' shares of S (this
+// warp's: rows 16 mt + gq (+ 8), columns 8 nt + 2 tq (+ 1)): the shares
+// go to sp and are summed in warp order, and P = exp(S - lse) g is stored
+// split (hi over warp 0's share, lo over warp 1's: each element is read
+// and written by one thread); zero past n_own and n_walk. i = r, or with
+// BY_WALKER i = c, picks the lse and g of each probability.
+template <int MT, bool BY_WALKER>
+__device__ __forceinline__ void probabilities(
+    float* sp, const float (&s)[MT][BV / 8][4], const float* lse,
+    const float* g, int o0, int j0, int n_own, int n_walk) {
+  constexpr int BO = 16 * MT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  __syncthreads();   // every warp is past its reads of the last P
+  float* part = sp + warp * BO * PS;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < BV / 8; ++nt) {
+      const int r = 16 * mt + gq, c = 8 * nt + 2 * tq;
+      part[sat(r, c)] = s[mt][nt][0];
+      part[sat(r, c + 1)] = s[mt][nt][1];
+      part[sat(r + 8, c)] = s[mt][nt][2];
+      part[sat(r + 8, c + 1)] = s[mt][nt][3];
+    }
+  __syncthreads();
+#pragma unroll
+  for (int e = threadIdx.x; e < BO * BV; e += NTH) {
+    const int r = e / BV, c = e % BV, i = sat(r, c);
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < NW; ++q) sum += sp[q * BO * PS + i];
+    const int row = o0 + r, col = j0 + c, at_lg = BY_WALKER ? col : row;
+    const float p = row < n_own && col < n_walk
+                        ? expf(sum - lse[at_lg]) * g[at_lg] : 0.f;
+    uint32_t hi, lo;
+    split(p, hi, lo);
+    sp[i] = __uint_as_float(hi);
+    sp[BO * PS + i] = __uint_as_float(lo);
+  }
+  __syncthreads();
+}
+
+// acc += P . walk over the walker tile's BV rows and this warp's columns
+// [c0, c0 + 8 NTW) of ws, with P's hi and lo in sp, 4 MMA columns at a
+// time: their product is summed from zero over the tile (12 MMAs) and
+// then added to acc in fp32, because the tensor cores' accumulation
+// truncates (over K3b's whole vocab chunk, ~9000 MMAs, that costs ~1e-4
+// of dh). As the last group finishes each 8 rows kb of the tile,
+// refill(kb) may copy the next tile's rows into them.
+template <int MT, int NTW, int DP, typename R>
+__device__ __forceinline__ void p_walk(float (&acc)[MT][NTW][4],
+                                       const float* sp, const float* ws,
+                                       int c0, R&& refill) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const int ar = (lane & 7) + 8 * ((lane >> 3) & 1), ac = 4 * (lane >> 4);
+  const float* ph = sp;
+  const float* pl = sp + 16 * MT * PS;
+#pragma unroll
+  for (int ng = 0; ng < NTW; ng += 4) {
+    float tmp[MT][4][4];
+    zero(tmp);
+#pragma unroll 2
+    for (int kb = 0; kb < BV / 8; ++kb) {
+      const int k = 8 * kb + tq;
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        ldsm4(ph + sat(16 * mt + ar, 8 * kb + ac), ah[mt]);
+        ldsm4(pl + sat(16 * mt + ar, 8 * kb + ac), al[mt]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = c0 + 8 * (ng + i) + gq;
+        uint32_t bh0, bl0, bh1, bl1;
+        split(ws[at<DP>(k, col)], bh0, bl0);
+        split(ws[at<DP>(k + 4, col)], bh1, bl1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3(tmp[mt][i], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+      }
+      if (ng + 4 == NTW) refill(kb);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][ng + i][q] += tmp[mt][i][q];
+  }
+}
+
+// This warp's gradient acc (rows o0 + 16 mt + gq (+ 8), columns c0 + 8 nt
+// + 2 tq (+ 1)) into o, (n_own, d) row-major; nothing past n_own or d.
+template <int MT, int NTW>
+__device__ __forceinline__ void store_acc(float* o,
+                                          const float (&acc)[MT][NTW][4],
+                                          int o0, int c0, int n_own, int d) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = o0 + 16 * mt + gq + 8 * half;
+        const int col = c0 + 8 * nt + 2 * tq;
+        if (row < n_own) {
+          if (col < d) o[(size_t)row * d + col] = acc[mt][nt][2 * half];
+          if (col + 1 < d)
+            o[(size_t)row * d + col + 1] = acc[mt][nt][2 * half + 1];
+        }
+      }
+}
 
 // Block (owner tile x, walker chunk y): the partial gradient of its
 // owner rows over the chunk's walker tiles -> out + y * n_own * d, with
@@ -341,12 +635,7 @@ cce_grad_kernel(const float* __restrict__ own,
   float* ws = os + BO * DP;        // [BV][DP], one walker tile
   float* sp = ws + BV * DP;        // [NW][BO][PS] partial S; then P's hi, lo
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
   const int o0 = blockIdx.x * BO, c0 = warp * DW;
-  // the row and column offsets this lane addresses for ldsm4: in an A
-  // fragment (16 x 8), and in two B fragments (8 + 8 rows x 8)
-  const int ar = (lane & 7) + 8 * ((lane >> 3) & 1), ac = 4 * (lane >> 4);
-  const int br = (lane & 7) + 8 * (lane >> 4), bc = 4 * ((lane >> 3) & 1);
   const int tiles = (n_walk + BV - 1) / BV;
   const int t0 = (int)((long long)blockIdx.y * tiles / gridDim.y);
   const int t1 = (int)((long long)(blockIdx.y + 1) * tiles / gridDim.y);
@@ -354,19 +643,13 @@ cce_grad_kernel(const float* __restrict__ own,
       ((reinterpret_cast<uintptr_t>(own) |
         reinterpret_cast<uintptr_t>(walk)) & 15) == 0;
 
-  // every warp copies, and later reads, only its own columns
-  load_rows<DP, DW>(os, own, o0, n_own, 0, BO, c0, d, vec, lane);
+  // every warp copies, and later reads, only its own columns; the owner
+  // rows serve every tile, so they are stored pre-split once
+  load_rows<DP, DW>(os, own, o0, n_own, 0, BO, c0, 0, d, vec, lane);
   if (t0 < t1)
-    load_rows<DP, DW>(ws, walk, t0 * BV, n_walk, 0, BV, c0, d, vec, lane);
+    load_rows<DP, DW>(ws, walk, t0 * BV, n_walk, 0, BV, c0, 0, d, vec, lane);
   cp_commit();
-  // the owner rows serve every tile: store them pre-split once
-  cp_wait<0>();
-  __syncwarp();
-  for (int i = lane; i < BO * DW; i += 32) {
-    float& x = os[at<DP>(i / DW, c0 + i % DW)];
-    x = presplit(x);
-  }
-  __syncwarp();
+  presplit_owner<BO, DP, DW>(os, c0, lane);
   // this lane's 16-byte copies of an 8-row group of the walker tile: shared
   // offset from the group's first row (the swizzle repeats every 8
   // rows) and global offset from that row, -1 past d
@@ -381,183 +664,102 @@ cce_grad_kernel(const float* __restrict__ own,
   }
 
   float acc[MT][NTW][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-
+  zero(acc);
   for (int t = t0; t < t1; ++t) {
     const int j0 = t * BV;
     cp_wait<0>();
     __syncwarp();
-    // this warp's share of S = own . walk^T: the sum over its columns,
-    // SK 8-deep steps at a time summed from zero in the MMAs and added
-    // in fp32. Summed over all NTW steps in the MMAs, S's truncation
-    // moved dw by ~4e-6 of its largest value (dw sums h rows of mixed
-    // sign) and dh by ~2.5e-6; four steps at a time ~1.9e-6 and ~1.3e-6
-    // for 0.1-0.3 ms; every step ~0.9e-6 and ~1.1e-6 for ~0.5 ms
-    // (tools/dh_breakdown.py)
     float s[MT][BV / 8][4];
+    zero(s);
+    s_share<MT, NTW, DP>(s, os, ws, c0);
+    probabilities<MT, BY_WALKER>(sp, s, lse, g, o0, j0, n_own, n_walk);
+    // as the product finishes each 8 rows of the tile, the warp starts
+    // copying the next tile's into them
+    p_walk<MT, NTW, DP>(acc, sp, ws, c0, [&](int kb) {
+      if (t + 1 < t1) {
+        __syncwarp();
+        const int r0 = 8 * kb, g0 = j0 + BV + r0;
+        if (vec) {
+          const int lim = (n_walk - g0) * DP;   // rows left, as an offset
+          const float* src = walk + (size_t)g0 * d;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < BV / 8; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) s[mt][nt][q] = 0.f;
-#pragma unroll (4 / SK)
-    for (int kg = 0; kg < NTW; kg += SK) {
-      float sx[MT][BV / 8][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < BV / 8; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) sx[mt][nt][q] = 0.f;
-#pragma unroll
-      for (int ks = kg; ks < kg + SK; ++ks) {
-        const int k0 = c0 + 8 * ks;
-        uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t x[4];
-          ldsm4(os + at<DP>(16 * mt + ar, k0 + ac), x);
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            split_exact(__uint_as_float(x[q]), ah[mt][q], al[mt][q]);
-        }
-#pragma unroll
-        for (int np = 0; np < BV / 16; ++np) {
-          uint32_t y[4];   // b0, b1 of MMA column tile 2 np, then 2 np + 1
-          ldsm4(ws + at<DP>(16 * np + br, k0 + bc), y);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            uint32_t bh0, bl0, bh1, bl1;
-            split(__uint_as_float(y[2 * e]), bh0, bl0);
-            split(__uint_as_float(y[2 * e + 1]), bh1, bl1);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-              mma3(sx[mt][2 * np + e], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+          for (int i = 0; i < GPL; ++i) {
+            const bool ok = goff[i] >= 0 && soff[i] < lim;
+            cp16(ws + r0 * DP + soff[i], ok ? src + goff[i] : walk, ok);
           }
+        } else {
+          load_rows<DP, DW>(ws, walk, j0 + BV, n_walk, r0, 8, c0, 0, d,
+                            false, lane);
         }
       }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < BV / 8; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) s[mt][nt][q] += sx[mt][nt][q];
-    }
-    __syncthreads();   // every warp is past its reads of the last P
-    float* part = sp + warp * BO * PS;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < BV / 8; ++nt) {
-        const int r = 16 * mt + gq, c = 8 * nt + 2 * tq;
-        part[sat(r, c)] = s[mt][nt][0];
-        part[sat(r, c + 1)] = s[mt][nt][1];
-        part[sat(r + 8, c)] = s[mt][nt][2];
-        part[sat(r + 8, c + 1)] = s[mt][nt][3];
-      }
-    __syncthreads();
-    // P = exp(S - lse) g, the partial S summed in warp order, stored split
-    // (hi over warp 0's partial, lo over warp 1's: each element is read
-    // and written by one thread); zero past n_own and n_walk
-#pragma unroll
-    for (int e = threadIdx.x; e < BO * BV; e += NTH) {
-      const int r = e / BV, c = e % BV, i = sat(r, c);
-      float sum = 0.f;
-#pragma unroll
-      for (int q = 0; q < NW; ++q) sum += sp[q * BO * PS + i];
-      const int row = o0 + r, col = j0 + c, at_lg = BY_WALKER ? col : row;
-      const float p = row < n_own && col < n_walk
-                          ? expf(sum - lse[at_lg]) * g[at_lg] : 0.f;
-      uint32_t hi, lo;
-      split(p, hi, lo);
-      sp[i] = __uint_as_float(hi);
-      sp[BO * PS + i] = __uint_as_float(lo);
-    }
-    __syncthreads();
-    // out += P . walk over the tile's rows, this warp's columns, 4 MMA
-    // columns at a time: their product is summed from zero over the
-    // tile (12 MMAs) and then added to acc in fp32, because the tensor
-    // cores' accumulation truncates (over K3b's whole vocab chunk, ~9000
-    // MMAs, that costs ~1e-4 of dh). As the last group finishes each 8
-    // rows of the tile, the warp starts copying the next tile's into them.
-    const float* ph = sp;
-    const float* pl = sp + BO * PS;
-#pragma unroll
-    for (int ng = 0; ng < NTW; ng += 4) {
-      float tmp[MT][4][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) tmp[mt][i][q] = 0.f;
-#pragma unroll 2
-      for (int kb = 0; kb < BV / 8; ++kb) {
-        const int k = 8 * kb + tq;
-        uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          ldsm4(ph + sat(16 * mt + ar, 8 * kb + ac), ah[mt]);
-          ldsm4(pl + sat(16 * mt + ar, 8 * kb + ac), al[mt]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = c0 + 8 * (ng + i) + gq;
-          uint32_t bh0, bl0, bh1, bl1;
-          split(ws[at<DP>(k, col)], bh0, bl0);
-          split(ws[at<DP>(k + 4, col)], bh1, bl1);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma3(tmp[mt][i], ah[mt], al[mt], bh0, bh1, bl0, bl1);
-        }
-        if (ng + 4 == NTW && t + 1 < t1) {
-          __syncwarp();
-          const int r0 = 8 * kb, g0 = j0 + BV + r0;
-          if (vec) {
-            const int lim = (n_walk - g0) * DP;   // rows left, as an offset
-            const float* src = walk + (size_t)g0 * d;
-#pragma unroll
-            for (int i = 0; i < GPL; ++i) {
-              const bool ok = goff[i] >= 0 && soff[i] < lim;
-              cp16(ws + r0 * DP + soff[i], ok ? src + goff[i] : walk, ok);
-            }
-          } else {
-            load_rows<DP, DW>(ws, walk, j0 + BV, n_walk, r0, 8, c0, d, false,
-                              lane);
-          }
-        }
-        cp_commit();
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[mt][ng + i][q] += tmp[mt][i][q];
-    }
+      cp_commit();
+    });
   }
   cp_wait<0>();
-  float* o = out + (size_t)blockIdx.y * n_own * d;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = o0 + 16 * mt + gq + 8 * half;
-        const int col = c0 + 8 * nt + 2 * tq;
-        if (row < n_own) {
-          if (col < d) o[(size_t)row * d + col] = acc[mt][nt][2 * half];
-          if (col + 1 < d)
-            o[(size_t)row * d + col + 1] = acc[mt][nt][2 * half + 1];
-        }
-      }
+  store_acc<MT, NTW>(out + (size_t)blockIdx.y * n_own * d, acc, o0, c0,
+                     n_own, d);
+}
+
+// K3b and K3c past D = WIDE columns: cce_grad_kernel<1, 16, BY_WALKER>'s
+// routines (16 owner rows, 128 columns a warp, DP = WIDE), but block z
+// owns only the WIDE-column chunk z of its rows' gradient. S needs all
+// of D, so for every walker tile the block walks D's chunks, copying the
+// owner rows' and the walker tile's columns of each into shared memory
+// (the owner's pre-split), chunk z last, so that the walker columns of
+// its own chunk are there for the P walk product. Nothing is prefetched:
+// this body is right, not fast.
+constexpr int WIDE = 1024;
+
+// The K3b/K3c grid's blocks along D for width d: one up to WIDE columns.
+__host__ __device__ constexpr int grad_chunks(int d) {
+  return d <= WIDE ? 1 : (d + WIDE - 1) / WIDE;
+}
+
+template <bool BY_WALKER>
+__global__ void __launch_bounds__(NTH, 1)
+cce_grad_wide_kernel(const float* __restrict__ own,
+                     const float* __restrict__ walk,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ g, float* __restrict__ out,
+                     int n_own, int n_walk, int d) {
+  constexpr int MT = 1, NTW = 16;
+  using G = Geometry<MT, NTW>;
+  constexpr int BO = G::BO, DW = G::DW, DP = G::DP;
+  static_assert(DP == WIDE, "a chunk is one tile of columns");
+  extern __shared__ __align__(16) float smem[];
+  float* os = smem;                // [BO][DP], a chunk of the owner rows
+  float* ws = os + BO * DP;        // [BV][DP], a chunk of one walker tile
+  float* sp = ws + BV * DP;        // [NW][BO][PS] partial S; then P's hi, lo
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int o0 = blockIdx.x * BO, c0 = warp * DW;
+  const int tiles = (n_walk + BV - 1) / BV;
+  const int t0 = (int)((long long)blockIdx.y * tiles / gridDim.y);
+  const int t1 = (int)((long long)(blockIdx.y + 1) * tiles / gridDim.y);
+  const int nq = grad_chunks(d), z = blockIdx.z;
+  const bool vec = d % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(own) |
+        reinterpret_cast<uintptr_t>(walk)) & 15) == 0;
+
+  float acc[MT][NTW][4];
+  zero(acc);
+  for (int t = t0; t < t1; ++t) {
+    const int j0 = t * BV;
+    float s[MT][BV / 8][4];
+    zero(s);
+    for (int i = 1; i <= nq; ++i) {
+      const int base = (z + i) % nq * DP;
+      __syncwarp();   // the warp is past its reads of these columns
+      load_rows<DP, DW>(os, own, o0, n_own, 0, BO, c0, base, d, vec, lane);
+      load_rows<DP, DW>(ws, walk, j0, n_walk, 0, BV, c0, base, d, vec, lane);
+      cp_commit();
+      presplit_owner<BO, DP, DW>(os, c0, lane);
+      s_share<MT, NTW, DP>(s, os, ws, c0);
+    }
+    probabilities<MT, BY_WALKER>(sp, s, lse, g, o0, j0, n_own, n_walk);
+    p_walk<MT, NTW, DP>(acc, sp, ws, c0, [](int) {});
+  }
+  store_acc<MT, NTW>(out + (size_t)blockIdx.y * n_own * d, acc, o0,
+                     z * DP + c0, n_own, d);
 }
 
 }  // namespace tc
@@ -590,36 +792,51 @@ cudaError_t call_grad(F&& f) {
 // f(kernel, owner rows a block, dynamic shared bytes) of the K3b
 // (BY_WALKER false) or K3c (true) body for d: D <= 256, 512, 768 take 32
 // rows a block and D / 8 columns a warp (the accumulator is <= 96
-// registers); D <= 1024 takes 16 rows. Returns cudaErrorInvalidValue
-// past 1024.
+// registers); D <= 1024 takes 16 rows; past that the wide body, 16 rows
+// and one 1024-column chunk of their gradient a block.
 template <bool BY_WALKER, typename F>
 cudaError_t with_grad_body(int d, F&& f) {
   if (d <= 256) return call_grad<BY_WALKER, 2, 4>(f);
   if (d <= 512) return call_grad<BY_WALKER, 2, 8>(f);
   if (d <= 768) return call_grad<BY_WALKER, 2, 12>(f);
-  if (d <= 1024) return call_grad<BY_WALKER, 1, 16>(f);
-  return cudaErrorInvalidValue;
+  if (d <= tc::WIDE) return call_grad<BY_WALKER, 1, 16>(f);
+  return f(tc::cce_grad_wide_kernel<BY_WALKER>, tc::Geometry<1, 16>::BO,
+           tc::Geometry<1, 16>::SMEM_BYTES);
 }
 
-// What the body for d uses: registers and local (spilled) bytes a
-// thread, dynamic shared memory bytes and owner rows a block.
+// What a body uses, as the runtime reports it once its dynamic shared
+// memory is set as a launch sets it: registers and local (spilled) bytes
+// a thread and shared bytes a block; beside them the owner rows a block
+// and the blocks along D that a launch gives it.
+template <typename K>
+cudaError_t usage(K kernel, int smem, int r, int chunks, int* regs,
+                  int* local_bytes, int* smem_bytes, int* rows,
+                  int* d_chunks) {
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *smem_bytes = (int)attr.sharedSizeBytes + attr.maxDynamicSharedSizeBytes;
+  *rows = r;
+  *d_chunks = chunks;
+  return cudaSuccess;
+}
+
 template <bool BY_WALKER>
 cudaError_t grad_usage(int d, int* regs, int* local_bytes, int* smem_bytes,
-                       int* rows) {
+                       int* rows, int* d_chunks) {
   return with_grad_body<BY_WALKER>(d, [&](auto kernel, int r, int smem) {
-    cudaFuncAttributes attr;
-    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-    if (e != cudaSuccess) return e;
-    *regs = attr.numRegs;
-    *local_bytes = (int)attr.localSizeBytes;
-    *smem_bytes = smem;
-    *rows = r;
-    return cudaSuccess;
+    return usage(kernel, smem, r, tc::grad_chunks(d), regs, local_bytes,
+                 smem_bytes, rows, d_chunks);
   });
 }
 
-// One launch of the body: grid (owner tiles, splits), owner (n_owner, d)
-// and walker (n_walker, d) row-major.
+// One launch of the body: grid (owner tiles, splits, chunks of D: one
+// up to WIDE columns), owner (n_owner, d) and walker (n_walker, d)
+// row-major.
 template <bool BY_WALKER>
 cudaError_t launch_grad(const float* owner, const float* walker,
                         const float* lse, const float* g, float* out,
@@ -628,7 +845,7 @@ cudaError_t launch_grad(const float* owner, const float* walker,
   return with_grad_body<BY_WALKER>(d, [&](auto kernel, int rows, int smem) {
     cudaError_t e = set_smem(kernel, smem);
     if (e != cudaSuccess) return e;
-    dim3 grid((n_owner + rows - 1) / rows, splits);
+    dim3 grid((n_owner + rows - 1) / rows, splits, tc::grad_chunks(d));
     kernel<<<grid, tc::NTH, smem, s>>>(owner, walker, lse, g, out, n_owner,
                                        n_walker, d);
     return cudaGetLastError();
@@ -638,8 +855,8 @@ cudaError_t launch_grad(const float* owner, const float* walker,
 }  // namespace
 
 // All pointers are contiguous fp32 on CUDA device `device`; h (n, d),
-// w (v, d), lse and g (n,), 1 <= d <= 1024. Each returns the cudaError_t
-// of its launches (0 = launched).
+// w (v, d), lse and g (n,), d >= 1. Each returns the cudaError_t of its
+// launches (0 = launched).
 
 // K3a: lse (n,). scratch: 2 * splits * n floats.
 extern "C" int bigdl_cce_lse_f32(const void* h, const void* w, void* lse,
@@ -647,24 +864,33 @@ extern "C" int bigdl_cce_lse_f32(const void* h, const void* w, void* lse,
                                  int splits, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d < 1 || d > 1024 || splits < 1) return (int)cudaErrorInvalidValue;
+  if (d < 1 || splits < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto pm = static_cast<float*>(scratch);
   auto ps = pm + (size_t)splits * n;
-  constexpr int RPT = 8;
-  const int smem = Tile<RPT>::LSE_FLOATS * (int)sizeof(float);
-  err = set_smem(cce_lse_kernel<RPT>, smem);
+  err = set_smem(lse::cce_lse_kernel, lse::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + Tile<RPT>::BO - 1) / Tile<RPT>::BO, splits);
-  cce_lse_kernel<RPT><<<grid, NT, smem, s>>>(static_cast<const float*>(h),
-                                             static_cast<const float*>(w), pm,
-                                             ps, n, v, d);
+  dim3 grid((n + lse::BM - 1) / lse::BM, splits);
+  lse::cce_lse_kernel<<<grid, lse::NTH, lse::SMEM_BYTES, s>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w), pm, ps, n,
+      v, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cce_lse_merge<<<(n + 255) / 256, 256, 0, s>>>(pm, ps,
                                                 static_cast<float*>(lse), n,
                                                 splits);
   return (int)cudaGetLastError();
+}
+
+// What the K3a body uses: registers and local (spilled) bytes a thread,
+// shared bytes and h rows a block (the same at every d), and its blocks
+// along D (1).
+extern "C" int bigdl_cce_lse_usage(int d, int* regs, int* local_bytes,
+                                   int* smem_bytes, int* rows,
+                                   int* d_chunks) {
+  if (d < 1) return (int)cudaErrorInvalidValue;
+  return (int)usage(lse::cce_lse_kernel, lse::SMEM_BYTES, lse::BM, 1, regs,
+                    local_bytes, smem_bytes, rows, d_chunks);
 }
 
 // K3b: dh (n, d). scratch: splits * n * d floats.
@@ -692,21 +918,24 @@ extern "C" int bigdl_cce_dh_f32(const void* h, const void* w,
 }
 
 // What the K3b (dh) or K3c (dw) body for d uses: registers and local
-// (spilled) bytes a thread, dynamic shared memory bytes and owner rows a
-// block.
+// (spilled) bytes a thread, shared bytes and owner rows a block, and its
+// blocks along D (one for each WIDE-column chunk of the gradient).
 extern "C" int bigdl_cce_dh_usage(int d, int* regs, int* local_bytes,
-                                  int* smem_bytes, int* rows) {
-  return (int)grad_usage<false>(d, regs, local_bytes, smem_bytes, rows);
+                                  int* smem_bytes, int* rows, int* d_chunks) {
+  return (int)grad_usage<false>(d, regs, local_bytes, smem_bytes, rows,
+                                d_chunks);
 }
 
 extern "C" int bigdl_cce_dw_usage(int d, int* regs, int* local_bytes,
-                                  int* smem_bytes, int* rows) {
-  return (int)grad_usage<true>(d, regs, local_bytes, smem_bytes, rows);
+                                  int* smem_bytes, int* rows, int* d_chunks) {
+  return (int)grad_usage<true>(d, regs, local_bytes, smem_bytes, rows,
+                               d_chunks);
 }
 
 // K3c: dw (v, d), the K3b body with the roles swapped: a block owns 32
 // vocab rows (16 when D > 768) and walks every h row, one block per
-// vocab tile (1571 at V = 50257), so nothing needs merging.
+// vocab tile (1571 at V = 50257) and chunk of D, so nothing needs
+// merging.
 extern "C" int bigdl_cce_dw_f32(const void* h, const void* w,
                                 const void* lse, const void* g, void* dw,
                                 int n, int v, int d, int device,

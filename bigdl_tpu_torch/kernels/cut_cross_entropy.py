@@ -5,11 +5,12 @@ the (N, V) logits in device memory.
 `cut_cross_entropy(h, w, labels)` is a `torch.autograd.Function` whose
 forward launches K3a (`cce_lse`, the per-row logsumexp) and whose
 backward launches K3b (`cce_dh`) and K3c (`cce_dw`), the hand-written
-CUDA kernels of `csrc/cut_cross_entropy.cu`. K3a uses fp32 FMAs; K3b
-and K3c (one body, the roles of h and w swapped) run their products on
-the tensor cores in 3xTF32 (each fp32 operand split into two TF32 parts,
-three TF32 products), which keeps fp32 accuracy (CCE_TOL in the tests)
-and never reads PyTorch's TF32 flags.
+CUDA kernels of `csrc/cut_cross_entropy.cu`. All three run their
+products on the tensor cores in 3xTF32 (each fp32 operand split into two
+TF32 parts, three TF32 products), which keeps fp32 accuracy (LSE_TOL and
+CCE_TOL in the tests) and never reads PyTorch's TF32 flags. K3a is a
+GEMM tile with an online-logsumexp epilogue; K3b and K3c are one body
+with the roles of h and w swapped. They take any D >= 1.
 The label terms stay outside the kernels, as in the reference: the
 gather-dot `h . w[labels]` in the forward, `dh -= g w[labels]` and the
 scatter-add `dw[labels] -= g h` in the backward.
@@ -30,6 +31,7 @@ min(block_n, N), which the pipelined LM meets by padding its rows.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -37,15 +39,18 @@ import torch
 from bigdl_tpu_torch.kernels import _native
 
 BLOCK_N, BLOCK_V = 128, 512
-MAX_D = 1024
-# the kernels' tiles (csrc/cut_cross_entropy.cu): K3a owns 64 rows a
-# block and walks the vocab in 128-row tiles; K3b owns 32 rows (16 when
-# D > 768) and walks it in 32-row tiles, one block per SM (K3c the same
-# with the roles of h and w swapped)
-LSE_ROWS, LSE_VOCAB_TILE = 64, 128
+# the kernels' tiles (csrc/cut_cross_entropy.cu): K3a computes S for 128
+# h rows x 128 vocab rows a block and walks the vocab in 128-row tiles;
+# K3b owns 32 h rows (16 when D > 768) and walks the vocab in 32-row
+# tiles, one block per SM (K3c the same with the roles of h and w
+# swapped); past D = 1024 a grid axis cuts K3b's and K3c's gradient
+# into 1024-column chunks (the bodies report their rows and chunks:
+# dh_kernel_usage)
+LSE_ROWS, LSE_VOCAB_TILE = 128, 128
 DH_VOCAB_TILE = 32
-# blocks a K3a launch aims for, per SM, when it splits the vocab walk
-LSE_BLOCKS_PER_SM = 8
+# blocks a K3a launch aims for, per SM (one is resident at a time, so
+# this many waves), when it splits the vocab walk
+LSE_BLOCKS_PER_SM = 4
 
 
 def _probs(h, w, lse, g):
@@ -92,9 +97,6 @@ def _check(h, w, *vectors):
     if h.ndim != 2 or w.ndim != 2 or h.shape[1] != w.shape[1]:
         raise ValueError(f"cut_cross_entropy wants h (N, D) and w (V, D); "
                          f"got {tuple(h.shape)}, {tuple(w.shape)}")
-    if not 1 <= h.shape[1] <= MAX_D:
-        raise ValueError(f"the CUDA cut cross-entropy kernels take "
-                         f"1 <= D <= {MAX_D}, got D={h.shape[1]}")
     for t in (h, w, *vectors):
         if t.device != h.device:
             raise ValueError("cut_cross_entropy's tensors must lie on one "
@@ -117,7 +119,7 @@ def _sms(device) -> int:
 def _lse_splits(n, v, device):
     """How many chunks to cut K3a's vocab walk into so that the launch
     has about LSE_BLOCKS_PER_SM blocks per SM (at most one chunk per
-    tile)."""
+    tile): 33 at N = 2048, V = 50257 on 132 SMs, 4 waves of 132."""
     row_tiles = -(-n // LSE_ROWS)
     return max(1, min(-(-v // LSE_VOCAB_TILE),
                       -(-LSE_BLOCKS_PER_SM * _sms(device) // row_tiles)))
@@ -126,9 +128,11 @@ def _lse_splits(n, v, device):
 def dh_splits(n, v, d, sms):
     """How many chunks to cut K3b's vocab walk into. A block fills an SM
     (its shared memory), so as many chunks as one wave of `sms` blocks
-    holds whole (at least one, at most one a vocab tile)."""
-    row_tiles = -(-n // (32 if d <= 768 else 16))   # h rows a block
-    return max(1, min(-(-v // DH_VOCAB_TILE), sms // row_tiles))
+    holds whole (at least one, at most one a vocab tile). The body for d
+    gives its rows a block and its blocks along D (CUDA only)."""
+    use = dh_kernel_usage(d)
+    blocks = -(-n // use["rows"]) * use["d_chunks"]
+    return max(1, min(-(-v // DH_VOCAB_TILE), sms // blocks))
 
 
 def cce_lse(h, w):
@@ -176,18 +180,30 @@ def cce_dh(h, w, lse, g):
     return dh
 
 
-def _usage(name: str, d: int) -> dict:
-    fn = _fn(f"bigdl_{name}_usage", [ctypes.c_int] + [ctypes.c_void_p] * 4)
-    vals = [ctypes.c_int() for _ in range(4)]
+@functools.lru_cache(maxsize=None)
+def _usage_values(name: str, d: int) -> tuple:
+    fn = _fn(f"bigdl_{name}_usage", [ctypes.c_int] + [ctypes.c_void_p] * 5)
+    vals = [ctypes.c_int() for _ in range(5)]
     _native.check(fn(d, *map(ctypes.byref, vals)), f"{name} usage")
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "rows"),
-                    (v.value for v in vals)))
+    return tuple(v.value for v in vals)
+
+
+def _usage(name: str, d: int) -> dict:
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "rows",
+                     "d_chunks"), _usage_values(name, d)))
+
+
+def lse_kernel_usage(d: int) -> dict:
+    """Registers and local (spilled) bytes a thread, shared memory bytes
+    (as the runtime reports them) and h rows a block, and blocks along D,
+    of the K3a body for width d (CUDA only; one body serves every d)."""
+    return _usage("cce_lse", d)
 
 
 def dh_kernel_usage(d: int) -> dict:
-    """Registers and local (spilled) bytes a thread, dynamic shared
-    memory bytes and h rows a block, of the K3b body for width d (CUDA
-    only)."""
+    """Registers and local (spilled) bytes a thread, shared memory bytes
+    (as the runtime reports them) and h rows a block, and blocks along D,
+    of the K3b body for width d (CUDA only)."""
     return _usage("cce_dh", d)
 
 
@@ -250,7 +266,7 @@ def cut_cross_entropy(h, w, labels, block_n: Optional[int] = None,
     h @ w.T, without materializing them: h (N, D), w (V, D), labels (N,)
     integer -> (N,) fp32, differentiable in h and w. N must be a multiple
     of min(block_n, N) (block sizes default to 128 and 512); V and D need
-    not divide anything (D <= 1024 on CUDA)."""
+    not divide anything, and any D >= 1 runs on CUDA."""
     block_n = BLOCK_N if block_n is None else block_n
     block_v = BLOCK_V if block_v is None else block_v
     if block_n < 1 or block_v < 1:

@@ -47,19 +47,29 @@ Phases, in order; any failed check exits non-zero:
      of that step's, and the trained model's logits finite with a mean
      loss equal (1e-5 relative) to its fused loss; with the step time
      (median), tokens/s, a split of one step, the device idle share and
-     the peak memory of both losses.
+     the peak memory of both losses;
+  7. the pipelined LM at GPT-2-large width (d 1280, 20 heads, d_ff 5120,
+     cut to 2 layers, one stage, 2 microbatches of 1 x 1024 tokens,
+     fused_loss), the width the cut cross-entropy kernels once refused,
+     trained with Adam(3e-4) for LARGE_STEPS steps: every loss finite,
+     exactly 2 launches of each cut cross-entropy kernel per step and no
+     flash-attention launch, the first loss equal (1e-5 relative) to a
+     dense-loss step of the same weights.
 
 Phase 2 also holds the cut cross-entropy kernels (K3a/K3b/K3c) and the
-autograd Function around them against the dense plain version within
-CCE_TOL, at the pipelined LM's shape and at ragged ones, shows that a
-TF32 product would fail that tolerance, and that K3b and K3c (3xTF32 on
-the tensor cores) give the same bits on two launches and with PyTorch's
-TF32 switch on. The int8 GEMM (K4, int8 tensor-core MMAs) is also held
-bit for bit at ragged M and N, at K % 16 != 0 and on an unaligned
-operand. For K2, K4, K3b and K3c it prints the body launched and its
-registers and shared memory; an fp32 product kernel's bound is its
-operations as 3xTF32 on the tensor cores, with the fp32-FMA figure
-beside it.
+autograd Function around them against the dense plain version (K3a's
+lse within LSE_TOL, the rest within CCE_TOL), at the pipelined LM's
+shape, at ragged shapes and at D past 1024, shows that TF32 products
+would fail those tolerances, that the three kernels (3xTF32 on the
+tensor cores) give the same bits on two launches and with PyTorch's TF32
+switch on, and times them again at GPT-2 large's D = 1280. The int8
+GEMM (K4, int8 tensor-core MMAs) is also held bit for bit at ragged M
+and N, at K % 16 != 0 and on an unaligned operand, and timed beside its
+library route (torch._int_mm and the dequantizing epilogue in PyTorch
+ops: no single PyTorch call computes it). For K2, K4, K3a, K3b and K3c
+it prints the body launched and its registers and shared memory; an
+fp32 product kernel's bound is its operations as 3xTF32 on the tensor
+cores, with the fp32-FMA figure beside it.
 
 The last lines are the kernel record (one JSON object), the card line,
 and `{"ok": true, "device": {...}}`. Exits non-zero without printing a
@@ -102,6 +112,12 @@ GRAD_TOL = 1e-4
 # moves dh and dw by ~1e-4 of theirs, which check_cut_cross_entropy
 # shows fails it
 CCE_TOL = 1e-5
+# K3a's lse against the plain lse, both fp32: max|kernel - plain| <=
+# LSE_TOL * max|plain|. The fp32 plain lse is ~8.5e-08 of its largest
+# value from float64; a TF32 product moves lse by ~4.7e-06 (averaged
+# under the softmax): CCE_TOL would pass it, LSE_TOL fails it, which
+# check_cut_cross_entropy shows (tests/test_torch_kernels.py derives it)
+LSE_TOL = 1e-6
 # the embedding after one Adam step, fused against dense loss, within
 # EMB_TOL_LR * lr: Adam's first step is lr * g / (|g| + eps), so where
 # |g| >> eps it is +-lr whatever the rounding, and where |g| is near eps
@@ -118,6 +134,11 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 1024, 30, 3e-4
 # one stage, 4 microbatches of 2 x 1024 tokens
 GPT2_VOCAB, GPT2_D, GPT2_HEADS, GPT2_FF, GPT2_LAYERS = 50257, 768, 12, 3072, 12
 PIPE_STAGES, PIPE_MICRO = 1, 4
+# GPT-2 large's published widths (Hugging Face `gpt2-large`: n_embd 1280,
+# n_head 20, n_inner 5120), cut to 2 layers, 2 microbatches of 1 x 1024
+# tokens and 3 steps: the width the cut cross-entropy kernels once refused
+LARGE_D, LARGE_HEADS, LARGE_FF, LARGE_LAYERS = 1280, 20, 5120, 2
+LARGE_BATCH, LARGE_MICRO, LARGE_STEPS = 2, 2, 3
 
 
 def log(*a):
@@ -300,9 +321,19 @@ def check_int8(dev, gen):
                           for x, w, t, a, b in block])
     plain = cuda_ms(lambda: [int8_matmul_plain(x, w, a, b)
                              for x, w, t, a, b in block], iters=5)
-    # torch._int_mm is the int32 product alone, without the epilogue
-    lib = cuda_ms(lambda: [torch._int_mm(x, t.t()) for x, w, t, a, b
+    # no single PyTorch call computes K4's function: its library route is
+    # torch._int_mm (the int32 product) and the dequantizing epilogue in
+    # PyTorch ops, timed beside _int_mm alone
+    def library_route(x, t, a, b):
+        return torch._int_mm(x, t.t()).float() * a * b
+
+    lib = cuda_ms(lambda: [library_route(x, t, a, b) for x, w, t, a, b
+                           in block])
+    int_mm = cuda_ms(lambda: [torch._int_mm(x, t.t()) for x, w, t, a, b
                               in block])
+    lib_same = all(torch.equal(library_route(x, t, a, b),
+                               int8_matmul_plain(x, w, a, b))
+                   for x, w, t, a, b in block)
     nbytes = sum(x.numel() + w.numel() + 4 * (x.shape[0] + w.shape[1])
                  + 4 * x.shape[0] * w.shape[1] for x, w, *_ in block)
     ops = sum(2 * x.shape[0] * x.shape[1] * w.shape[1] for x, w, *_ in block)
@@ -310,7 +341,9 @@ def check_int8(dev, gen):
     body = kernel_body(block[0][0], block[0][2])
     usage = kernel_usage(block[0][0], block[0][2])
     log(f"  int8_matmul gate+up+down M={m}: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, _int_mm {lib:.4f} ms; bound {bms:.4f} ms ({by}: "
+        f"{plain:.4f} ms, library route (_int_mm + epilogue, bitwise equal "
+        f"to plain: {lib_same}) {lib:.4f} ms, _int_mm alone {int_mm:.4f} ms; "
+        f"bound {bms:.4f} ms ({by}: "
         f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G int8 ops); body at the "
         f"serving shapes: {body}, {usage['registers']} registers and "
         f"{usage['local_bytes']} B local a thread, {usage['shared_bytes']} B "
@@ -319,7 +352,11 @@ def check_int8(dev, gen):
             "source": "bigdl_tpu_torch/kernels/csrc/quantized_matmul.cu",
             "replaces": "bigdl_tpu/kernels/quantized_matmul.py:119",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "library_route_ms": lib, "library_route":
+                "torch._int_mm + .float() * x_scale * w_scale (no single "
+                "PyTorch call computes the function)",
+            "int_mm_ms": int_mm,
             "body": body, "registers": usage["registers"],
             "shape": f"gate+up+down of one block: M={m}, "
                      f"KxN={D}x{D_FF},{D}x{D_FF},{D_FF}x{D}"}
@@ -486,14 +523,15 @@ def check_fused_update(dev, gen):
 
 def check_cut_cross_entropy(dev, gen):
     """K3a/K3b/K3c against their plain versions (the same lse and g; K3c's
-    evaluated in float64), and the Function's loss and gradients against
-    autograd through the dense plain version, at the pipelined LM's
-    microbatch (N = 2 x 1024 rows,
-    D = 768, V = 50257) and at ragged shapes; a TF32 dense product held
-    to the same tolerance must fail it. Times each kernel at the path's
-    shape beside its plain version, the dense route's forward or backward
-    (matmul + F.cross_entropy, timed only) and its bound, with the peak
-    memory of a forward and backward of both routes."""
+    evaluated in float64; K3a within LSE_TOL, the others CCE_TOL), and
+    the Function's loss and gradients against autograd through the dense
+    plain version, at the pipelined LM's microbatch (N = 2 x 1024 rows,
+    D = 768, V = 50257), at ragged shapes and past D = 1024; a TF32 dense
+    product held to the same tolerances must fail them. Times each kernel
+    at the path's shape beside its plain version, the dense route's
+    forward or backward (matmul + F.cross_entropy, timed only) and its
+    bound, with the peak memory of a forward and backward of both
+    routes, and again at GPT-2 large's D = 1280."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.kernels import cut_cross_entropy as cce
@@ -510,15 +548,18 @@ def check_cut_cross_entropy(dev, gen):
     def abs_err(a, b):
         return (a - b).abs().max().item()
 
+    tols = {"cce_lse": LSE_TOL, "cce_dh": CCE_TOL, "cce_dw": CCE_TOL,
+            "loss": CCE_TOL, "dh": CCE_TOL, "dw": CCE_TOL}
     worst = {"cce_lse": 0.0, "cce_dh": 0.0, "cce_dw": 0.0}
     n_path = TRAIN_BATCH // PIPE_MICRO * TRAIN_SEQ
-    # the path's shape, N past K3b's 32-row tile, and ragged small ones
+    # the path's shape, N past K3b's 32-row tile, ragged small ones, and
+    # widths past 1024 (K3b and K3c cut D over a grid axis there)
     shapes = [(n_path, GPT2_VOCAB, GPT2_D), (n_path - 1, GPT2_VOCAB, GPT2_D),
-              (333, 1029, 96), (130, 777, 100)]
-    for n, v, d in shapes:
-        h, w, labels = inputs(n, v, d)
-        g = torch.full((n,), 1.0 / n, device=dev)
-        lse_p = cce.cce_lse_plain(h, w)
+              (333, 1029, 96), (130, 777, 100), (256, 1029, 1025),
+              (130, 777, LARGE_D), (77, 515, 2049)]
+    def kernel_errs(h, w, lse_p, g):
+        """max|kernel - plain| / max|plain| of K3a, K3b and K3c on these
+        inputs; worst keeps the largest absolute error of each."""
         pairs = {"cce_lse": (cce.cce_lse(h, w), lse_p),
                  "cce_dh": (cce.cce_dh(h, w, lse_p, g),
                             cce.cce_dh_plain(h, w, lse_p, g)),
@@ -527,10 +568,15 @@ def check_cut_cross_entropy(dev, gen):
                  "cce_dw": (cce.cce_dw(h, w, lse_p, g),
                             cce.cce_dw_plain(h.double(), w.double(),
                                              lse_p.double(), g.double()))}
-        errs = {k: rel(*ab) for k, ab in pairs.items()}
         for k, ab in pairs.items():
             worst[k] = max(worst[k], abs_err(*ab))
-        del pairs
+        return {k: rel(*ab) for k, ab in pairs.items()}
+
+    for n, v, d in shapes:
+        h, w, labels = inputs(n, v, d)
+        g = torch.full((n,), 1.0 / n, device=dev)
+        lse_p = cce.cce_lse_plain(h, w)
+        errs = kernel_errs(h, w, lse_p, g)
         hr, wr = h.clone().requires_grad_(), w.clone().requires_grad_()
         loss = cce.cut_cross_entropy(hr, wr, labels) if n % 128 == 0 else \
             cce.cut_cross_entropy(hr, wr, labels, block_n=n)
@@ -540,50 +586,55 @@ def check_cut_cross_entropy(dev, gen):
         torch.cuda.synchronize()
         fn_errs = {"loss": rel(loss, want), "dh": rel(gh, wh),
                    "dw": rel(gw, ww)}
-        ok = all(e <= CCE_TOL for e in [*errs.values(), *fn_errs.values()])
+        ok = all(e <= tols[k] for k, e in [*errs.items(), *fn_errs.items()])
         log(f"  cut cross-entropy N={n} V={v} D={d}: max|kernel - plain| / "
             f"max|plain|: " + ", ".join(f"{k} {e:.3e}" for k, e in
                                         errs.items())
             + "; through the Function: " + ", ".join(
                 f"{k} {e:.3e}" for k, e in fn_errs.items())
-            + f"; within {CCE_TOL}: {ok}")
+            + f"; lse within {LSE_TOL}, the rest within {CCE_TOL}: {ok}")
         if not ok:
             raise SystemExit("the cut cross-entropy kernels disagree with "
                              "their plain versions")
         del hr, wr, loss, gh, gw, want, wh, ww
 
-    # the tolerance has teeth: the plain dh and dw with TF32 products
+    # the tolerances have teeth: the plain lse, dh and dw with TF32 products
     h, w, labels = inputs(n_path, GPT2_VOCAB, GPT2_D)
     g = torch.full((n_path,), 1.0 / n_path, device=dev)
     lse_p = cce.cce_lse_plain(h, w)
-    exact = (cce.cce_dh_plain(h, w, lse_p, g), cce.cce_dw_plain(h, w, lse_p, g))
+    exact = (lse_p, cce.cce_dh_plain(h, w, lse_p, g),
+             cce.cce_dw_plain(h, w, lse_p, g))
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        tf32 = (cce.cce_dh_plain(h, w, lse_p, g),
+        tf32 = (cce.cce_lse_plain(h, w), cce.cce_dh_plain(h, w, lse_p, g),
                 cce.cce_dw_plain(h, w, lse_p, g))
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     tf32_errs = [rel(a, b) for a, b in zip(tf32, exact)]
-    log(f"  TF32 dense products at the path's shape: dh {tf32_errs[0]:.3e}, "
-        f"dw {tf32_errs[1]:.3e} of the largest value (tolerance "
-        f"{CCE_TOL}: fails it: {min(tf32_errs) > CCE_TOL})")
-    if min(tf32_errs) <= CCE_TOL:
-        raise SystemExit("CCE_TOL would pass a TF32 product; tighten it")
+    fails = (tf32_errs[0] > LSE_TOL, min(tf32_errs[1:]) > CCE_TOL)
+    log(f"  TF32 dense products at the path's shape: lse {tf32_errs[0]:.3e} "
+        f"(LSE_TOL {LSE_TOL}: fails it: {fails[0]}), dh {tf32_errs[1]:.3e}, "
+        f"dw {tf32_errs[2]:.3e} of the largest value (CCE_TOL {CCE_TOL}: "
+        f"fails it: {fails[1]})")
+    if not all(fails):
+        raise SystemExit("LSE_TOL or CCE_TOL would pass a TF32 product; "
+                         "tighten it")
     del exact, tf32
 
-    # K3b's chunk merge is in index order, K3c's blocks walk the h rows in
-    # order, and neither kernel reads the TF32 switch: two launches, and
-    # one with the switch on, agree bit for bit
-    for name in ("cce_dh", "cce_dw"):
-        fn = getattr(cce, name)
-        first = fn(h, w, lse_p, g)
+    # K3a's and K3b's chunk merges are in index order, K3c's blocks walk
+    # the h rows in order, and no kernel reads the TF32 switch: two
+    # launches, and one with the switch on, agree bit for bit
+    for name, fn in (("cce_lse", lambda: cce.cce_lse(h, w)),
+                     ("cce_dh", lambda: cce.cce_dh(h, w, lse_p, g)),
+                     ("cce_dw", lambda: cce.cce_dw(h, w, lse_p, g))):
+        first = fn()
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
-            flag = fn(h, w, lse_p, g)
+            flag = fn()
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
-        again = fn(h, w, lse_p, g)
+        again = fn()
         torch.cuda.synchronize()
         same = torch.equal(first, again) and torch.equal(first, flag)
         log(f"  {name} at the path's shape: two launches and one with "
@@ -593,26 +644,53 @@ def check_cut_cross_entropy(dev, gen):
                              "switch")
         del first, again, flag
 
+    def dense_route(h, w, labels):
+        """Leaves hr, wr and the dense route's forward on them (matmul +
+        F.cross_entropy)."""
+        hr, wr = h.clone().requires_grad_(), w.clone().requires_grad_()
+
+        def fwd():
+            return F.cross_entropy(torch.matmul(hr, wr.T), labels,
+                                   reduction="none")
+        return hr, wr, fwd
+
+    def timed(h, w, hr, wr, dense_fwd):
+        """Holds K3a, K3b and K3c to their plain versions on the inputs
+        they are timed on (as in the loop above), then (kernel, plain,
+        dense route) ms of each."""
+        n, v, d = h.shape[0], w.shape[0], h.shape[1]
+        g = torch.full((n,), 1.0 / n, device=dev)
+        lse_p = cce.cce_lse_plain(h, w)
+        errs = kernel_errs(h, w, lse_p, g)
+        ok = all(e <= tols[k] for k, e in errs.items())
+        log(f"  timed inputs N={n} V={v} D={d}: max|kernel - plain| / "
+            f"max|plain|: " + ", ".join(f"{k} {e:.3e}" for k, e in
+                                        errs.items())
+            + f"; lse within {LSE_TOL}, the rest within {CCE_TOL}: {ok}")
+        if not ok:
+            raise SystemExit("the cut cross-entropy kernels disagree with "
+                             "their plain versions")
+        lib_fwd = cuda_ms(dense_fwd, iters=5, warmup=1)
+        out = dense_fwd()
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            out.mean(), (hr, wr), retain_graph=True), iters=5, warmup=1)
+        del out
+        return {"cce_lse": (cuda_ms(lambda: cce.cce_lse(h, w), iters=10),
+                            cuda_ms(lambda: cce.cce_lse_plain(h, w), iters=5,
+                                    warmup=1), lib_fwd),
+                "cce_dh": (cuda_ms(lambda: cce.cce_dh(h, w, lse_p, g),
+                                   iters=10),
+                           cuda_ms(lambda: cce.cce_dh_plain(h, w, lse_p, g),
+                                   iters=5, warmup=1), lib_bwd),
+                "cce_dw": (cuda_ms(lambda: cce.cce_dw(h, w, lse_p, g),
+                                   iters=10),
+                           cuda_ms(lambda: cce.cce_dw_plain(h, w, lse_p, g),
+                                   iters=5, warmup=1), lib_bwd)}
+
     # timing at the path's shape
     n, v, d = n_path, GPT2_VOCAB, GPT2_D
-    t_lse = cuda_ms(lambda: cce.cce_lse(h, w), iters=10)
-    t_dh = cuda_ms(lambda: cce.cce_dh(h, w, lse_p, g), iters=10)
-    t_dw = cuda_ms(lambda: cce.cce_dw(h, w, lse_p, g), iters=10)
-    p_lse = cuda_ms(lambda: cce.cce_lse_plain(h, w), iters=5, warmup=1)
-    p_dh = cuda_ms(lambda: cce.cce_dh_plain(h, w, lse_p, g), iters=5, warmup=1)
-    p_dw = cuda_ms(lambda: cce.cce_dw_plain(h, w, lse_p, g), iters=5, warmup=1)
-    hr, wr = h.clone().requires_grad_(), w.clone().requires_grad_()
-
-    def dense_fwd():
-        return F.cross_entropy(torch.matmul(hr, wr.T), labels,
-                               reduction="none")
-
-    lib_fwd = cuda_ms(dense_fwd, iters=5, warmup=1)
-    out = dense_fwd()
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out.mean(), (hr, wr),
-                                                  retain_graph=True),
-                      iters=5, warmup=1)
-    del out
+    hr, wr, dense_fwd = dense_route(h, w, labels)
+    times = timed(h, w, hr, wr, dense_fwd)
 
     def peak(route):
         """Peak MiB above the inputs of one forward and backward."""
@@ -633,21 +711,21 @@ def check_cut_cross_entropy(dev, gen):
     log(f"  whole loss, forward and backward, N={n} V={v} D={d}: cut "
         f"cross-entropy {fused_ms:.4f} ms (peak +{fused_mib:.1f} MiB), dense "
         f"matmul + F.cross_entropy {dense_ms:.4f} ms (+{dense_mib:.1f} MiB)")
+    del hr, wr, h, w, labels, g, lse_p
     gemm = 2 * n * v * d                          # one N x V x D product
     io = 4 * (n * d + v * d)                      # h and w read once
     rows = []
-    for name, line, ms, plain, lib, ops, nbytes in (
-            ("cce_lse", 75, t_lse, p_lse, lib_fwd, gemm, io + 4 * n),
-            ("cce_dh", 119, t_dh, p_dh, lib_bwd, 2 * gemm,
-             io + 8 * n + 4 * n * d),
-            ("cce_dw", 166, t_dw, p_dw, lib_bwd, 2 * gemm,
-             io + 8 * n + 4 * v * d)):
+    for name, line, ops, nbytes in (
+            ("cce_lse", 75, gemm, io + 4 * n),
+            ("cce_dh", 119, 2 * gemm, io + 8 * n + 4 * n * d),
+            ("cce_dw", 166, 2 * gemm, io + 8 * n + 4 * v * d)):
+        ms, plain, lib = times[name]
         bms, by, fma_ms = fp32_bound(nbytes, ops)
+        route = "forward" if name == "cce_lse" else "backward"
         log(f"  {name} N={n} V={v} D={d}: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, dense route {'forward' if line == 75 else 'backward'} "
-            f"{lib:.4f} ms; bound {bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
-            f"{ops / 1e9:.1f} GFLOP fp32 as 3xTF32; on fp32 FMAs "
-            f"{fma_ms:.4f} ms)")
+            f"{plain:.4f} ms, dense route {route} {lib:.4f} ms; bound "
+            f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} "
+            f"GFLOP fp32 as 3xTF32; on fp32 FMAs {fma_ms:.4f} ms)")
         rows.append({"name": name, "route": "cuda",
                      "source": "bigdl_tpu_torch/kernels/csrc/"
                                "cut_cross_entropy.cu",
@@ -658,8 +736,13 @@ def check_cut_cross_entropy(dev, gen):
                      "peak_mib": fused_mib, "library_peak_mib": dense_mib,
                      "shape": f"N={n} V={v} D={d} fp32"})
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lse_use = cce.lse_kernel_usage(d)
     dh_use, dw_use = cce.dh_kernel_usage(d), cce.dw_kernel_usage(d)
     for row, usage, body in (
+            (rows[0], lse_use, f"{lse_use['rows']} h rows x "
+             f"{cce.LSE_VOCAB_TILE} vocab rows a block, 3-stage cp.async "
+             f"ring over 64-deep slices of D, S promoted every 32 columns, "
+             f"{cce._lse_splits(n, v, dev)} vocab chunks"),
             (rows[1], dh_use, f"{dh_use['rows']} h rows a block, "
              f"{cce.dh_splits(n, v, d, sms)} vocab chunks"),
             (rows[2], dw_use, f"{dw_use['rows']} w rows a block, "
@@ -668,7 +751,28 @@ def check_cut_cross_entropy(dev, gen):
         log(f"  {row['name']} body at the path's shape: {body}; "
             f"{usage['registers']} registers and {usage['local_bytes']} B "
             f"local a thread, {usage['shared_bytes']} B shared a block")
-        row.update(body=body, registers=usage["registers"])
+        row.update(body=body, registers=usage["registers"],
+                   local_bytes=usage["local_bytes"],
+                   shared_bytes=usage["shared_bytes"])
+
+    # GPT-2 large's width: K3a streams D; K3b and K3c take the wide body
+    torch.cuda.empty_cache()
+    h, w, labels = inputs(n_path, GPT2_VOCAB, LARGE_D)
+    wide = timed(h, w, *dense_route(h, w, labels))
+    use = cce.dh_kernel_usage(LARGE_D)
+    log(f"  at GPT-2 large's D={LARGE_D} (N={n_path} V={GPT2_VOCAB}): "
+        + "; ".join(f"{k} kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, dense "
+                    f"route {'forward' if k == 'cce_lse' else 'backward'} "
+                    f"{t[2]:.4f} ms" for k, t in wide.items())
+        + f"; the K3b/K3c body there: {use['rows']} rows a block, "
+        f"{use['d_chunks']} chunks of D, "
+        f"{use['registers']} registers, {use['local_bytes']} B local, "
+        f"{use['shared_bytes']} B shared")
+    for row in rows:
+        ms, plain, lib = wide[row["name"]]
+        row.update(d1280_ms=ms, d1280_plain_ms=plain, d1280_library_ms=lib)
+    del h, w, labels
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1242,6 +1346,88 @@ def pipelined_slice(dev):
              "peak_mib_dense": dense_mib, "emb_max_abs_diff": emb_err})
 
 
+def pipelined_large_slice(dev):
+    """PipelinedLM at GPT-2 large's width (LARGE_*), fused loss, a few
+    Adam steps: the entry point whose loss once refused D > 1024. Every
+    loss finite, exactly LARGE_MICRO launches of each cut cross-entropy
+    kernel per step and no flash launch, the first loss within 1e-5
+    (relative) of a dense-loss step of the same weights."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.kernels import cut_cross_entropy as cce
+    from bigdl_tpu_torch.kernels.flash_attention import flash_attention
+    from bigdl_tpu_torch.models.pipelined_lm import PipelinedLM
+    from bigdl_tpu_torch.optim.method import Adam, init_update_slots
+
+    def build(fused):
+        return PipelinedLM(GPT2_VOCAB, d_model=LARGE_D, num_heads=LARGE_HEADS,
+                           d_ff=LARGE_FF, num_layers=LARGE_LAYERS,
+                           n_stages=1, n_microbatches=LARGE_MICRO,
+                           max_len=TRAIN_SEQ, fused_loss=fused, device=dev)
+
+    r = np.random.RandomState(1)
+    tokens = r.randint(0, GPT2_VOCAB, (LARGE_BATCH, TRAIN_SEQ + 1))
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    lm = build(True)
+    lm.init(torch.Generator(device=dev).manual_seed(0))
+    initial = {k: v.detach().clone() for k, v in lm.named_parameters()}
+    adam = Adam(TRAIN_LR)
+    slots = init_update_slots(adam, lm.param_tree())
+    log(f"  PipelinedLM d_model {LARGE_D}, {LARGE_HEADS} heads, d_ff "
+        f"{LARGE_FF}, {LARGE_LAYERS} layers, "
+        f"{sum(p.numel() for p in initial.values())} params (1 stage, "
+        f"{LARGE_MICRO} microbatches of {LARGE_BATCH // LARGE_MICRO}x"
+        f"{TRAIN_SEQ}), fused_loss, Adam({TRAIN_LR})")
+    counters = (cce.cce_lse, cce.cce_dh, cce.cce_dw, flash_attention)
+    for c in counters:
+        c.launches.reset()
+    losses, times, per_step = [], [], set()
+    for _ in range(LARGE_STEPS):
+        before = [c.launches.value for c in counters]
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        loss, slots = lm.train_step(x, y, method=adam, slots=slots)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        per_step.add(tuple(c.launches.value - b
+                           for c, b in zip(counters, before)))
+        losses.append(loss)
+    counts = {c.__name__: c.launches.value for c in counters}
+    want = (LARGE_MICRO, LARGE_MICRO, LARGE_MICRO, 0)
+    log(f"  {LARGE_STEPS} steps, losses " + " ".join(f"{v:.4f}" for v in
+                                                   losses)
+        + f", step ms " + " ".join(f"{t * 1e3:.2f}" for t in times)
+        + f"; launches: {counts}; (K3a, K3b, K3c, K2) per step: "
+        f"{sorted(per_step)} (want {want} in every step)")
+    if per_step != {want}:
+        raise SystemExit("the GPT-2-large-width LM's steps did not run "
+                         "through the kernels as counted")
+    if not all(map(math.isfinite, losses)):
+        raise SystemExit("a GPT-2-large-width LM loss is not finite")
+    del lm, slots
+    torch.cuda.empty_cache()
+    dense = build(False)
+    for k, v in initial.items():
+        mod, _, leaf = k.rpartition(".")
+        (dense.get_submodule(mod) if mod else dense).set_param(leaf, v)
+    loss_d, _ = dense.train_step(x, y, method=adam,
+                                 slots=init_update_slots(adam,
+                                                         dense.param_tree()))
+    rel = abs(loss_d - losses[0]) / abs(losses[0])
+    log(f"  first loss, dense loss: {loss_d:.6f} vs fused {losses[0]:.6f} "
+        f"(relative {rel:.2e}, want <= 1e-5)")
+    if rel > 1e-5:
+        raise SystemExit("the GPT-2-large-width fused loss differs from the "
+                         "dense loss")
+    del dense, initial
+    torch.cuda.empty_cache()
+    return ({"cce_lse": counts["cce_lse"], "cce_dh": counts["cce_dh"],
+             "cce_dw": counts["cce_dw"]},
+            {"losses": losses, "loss_first_dense": loss_d,
+             "loss_first_rel": rel,
+             "step_ms": [t * 1e3 for t in times]})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1293,6 +1479,11 @@ def main() -> int:
     log("phase 6: the pipelined LM at GPT-2-small width, fused loss")
     by_path["pipelined"], pipelined = pipelined_slice(dev)
     log("  pipelined " + json.dumps(pipelined))
+    torch.cuda.empty_cache()
+
+    log("phase 7: the pipelined LM at GPT-2-large width, fused loss")
+    by_path["pipelined_large"], large = pipelined_large_slice(dev)
+    log("  pipelined_large " + json.dumps(large))
     for k in record:
         counts = {path: n.get(k["name"], 0) for path, n in by_path.items()}
         k["launches"] = sum(counts.values())

@@ -263,6 +263,79 @@ def test_cce_dw_3xtf32_meets_the_tolerance_and_tf32_misses_it(hi):
     assert err1 > CCE_TOL * 10, err1
 
 
+# ----------------------------------------------- cut cross-entropy's lse
+# LSE_TOL (tests/test_torch_cuda.py and chip_smoke.py hold K3a to it):
+# max|lse - plain| <= LSE_TOL * max|plain|. The fp32 plain lse is ~8.5e-08
+# of its largest value from float64 (fp32 sums of S and of the softmax);
+# one TF32 product (10-bit mantissa, ~5e-4 relative on each logit) moves
+# lse by ~4.7e-06, averaged under the softmax. 1e-6 sits ~10x above the
+# first and ~5x below the second, so CCE_TOL (1e-5) would pass the
+# shortcut and LSE_TOL does not.
+LSE_TOL = 1e-6
+LSE_BK, LSE_BN = 32, 128   # K3a's promotion depth in D and vocab tile
+
+
+def _lse_like_k3a(h, w, mm, splits=3):
+    """K3a's arithmetic: S summed from zero per 32 columns of D (in
+    `mm`, rounded to fp32) and added in fp32; 128-column vocab tiles
+    folded into a running (max, sum) in fp32, columns cut into `splits`
+    chunks as the kernel's grid cuts them, merged in index order."""
+    s = None
+    for k0 in range(0, h.shape[1], LSE_BK):
+        part = mm(h[:, k0:k0 + LSE_BK], w[:, k0:k0 + LSE_BK].T)
+        s = part if s is None else s + part
+    tiles = -(-w.shape[0] // LSE_BN)
+    neg = torch.full((h.shape[0],), -1e30)
+    m_all, s_all = neg.clone(), torch.zeros(h.shape[0])
+    for c in range(splits):
+        m, acc = neg.clone(), torch.zeros(h.shape[0])
+        for tile in range(c * tiles // splits, (c + 1) * tiles // splits):
+            st = s[:, tile * LSE_BN:(tile + 1) * LSE_BN]
+            mn = torch.maximum(m, st.amax(1))
+            acc = acc * torch.exp(m - mn) + torch.exp(st - mn[:, None]).sum(1)
+            m = mn
+        mn = torch.maximum(m_all, m)
+        s_all = s_all * torch.exp(m_all - mn) + acc * torch.exp(m - mn)
+        m_all = mn
+    return m_all + torch.log(s_all)
+
+
+@pytest.mark.parametrize("hi", [_tf32, _tf32_toward_zero],
+                         ids=["hi_nearest", "hi_toward_zero"])
+def test_cce_lse_3xtf32_meets_the_tolerance_and_tf32_misses_it(hi):
+    """K3a's design emulated on the CPU (products in float64 after the
+    split; the tensor cores' truncating accumulation is not modelled, the
+    card tests hold the kernel itself to LSE_TOL) against float64 and
+    against the reference's cut_cross_entropy in interpret mode, whose
+    lse is its loss plus the label logit."""
+    from bigdl_tpu.kernels.cut_cross_entropy import cut_cross_entropy as jcce
+    from bigdl_tpu_torch.kernels.cut_cross_entropy import cce_lse_plain
+    n, v, d = 256, 4096, 768
+    r = np.random.RandomState(2)
+    h = torch.from_numpy(r.randn(n, d).astype(np.float32))
+    w = torch.from_numpy((r.randn(v, d) / np.sqrt(d)).astype(np.float32))
+    labels = r.randint(0, v, n).astype(np.int32)
+    exact = cce_lse_plain(h.double(), w.double())
+    loss = np.asarray(jcce(jnp.asarray(h.numpy()), jnp.asarray(w.numpy()),
+                           jnp.asarray(labels), interpret=True))
+    ref = torch.from_numpy(loss.copy()).double() + (
+        h.double() * w.double()[labels]).sum(1)
+
+    def rel(x, want):
+        return ((x.double() - want).abs().max() / want.abs().max()).item()
+    got = _lse_like_k3a(h, w, lambda a, b: _mm_3xtf32(a, b, hi))
+    err3, err_ref = rel(got, exact), rel(got, ref)
+    err1 = rel(_lse_like_k3a(h, w, _mm_tf32), exact)
+    err_plain = rel(cce_lse_plain(h, w), exact)
+    print(f"lse of max: 3xTF32 {err3:.3e} (against the reference "
+          f"{err_ref:.3e}), single TF32 {err1:.3e}, the fp32 plain lse "
+          f"{err_plain:.3e}")
+    assert err3 <= LSE_TOL / 4, err3
+    assert err_ref <= LSE_TOL, err_ref
+    assert err_plain <= LSE_TOL / 4, err_plain
+    assert err1 > 2 * LSE_TOL, err1
+
+
 # --------------------------------------------- flash attention's products
 # The CUDA flash-attention kernel (K2) runs S = Q K^T and O = P V on the
 # tensor cores in 3xTF32 with the split above. This emulates its

@@ -87,6 +87,36 @@ def test_cut_cross_entropy_matches_reference(cce_case, fn):
         _close(a.detach().numpy(), b, CCE_TOL)
 
 
+@pytest.fixture(scope="module")
+def cce_wide_case():
+    """N=128, V=500, D=1280 (GPT-2 large's width, past the 1024 columns
+    the CUDA kernels once refused): the reference returns here, its loss
+    and gradients against a random cotangent."""
+    from bigdl_tpu.kernels.cut_cross_entropy import cut_cross_entropy as jcce
+    r = np.random.RandomState(3)
+    h = r.randn(128, 1280).astype(np.float32)
+    w = (r.randn(500, 1280) / np.sqrt(1280)).astype(np.float32)
+    labels = r.randint(0, 500, 128).astype(np.int32)
+    g = r.randn(128).astype(np.float32)
+    loss, pull = jax.vjp(lambda a, b: jcce(a, b, jnp.asarray(labels),
+                                           interpret=True),
+                         jnp.asarray(h), jnp.asarray(w))
+    dh, dw = pull(jnp.asarray(g))
+    return (h, w, labels, g), tuple(np.asarray(a) for a in (loss, dh, dw))
+
+
+@pytest.mark.parametrize("fn", [cut_cross_entropy, cut_cross_entropy_plain],
+                         ids=["function", "plain"])
+def test_cut_cross_entropy_past_1024_columns_matches_reference(
+        cce_wide_case, fn):
+    (h, w, labels, g), want = cce_wide_case
+    ht, wt = t(h).requires_grad_(), t(w).requires_grad_()
+    loss = fn(ht, wt, t(labels).long())
+    dh, dw = torch.autograd.grad(loss, (ht, wt), t(g))
+    for a, b in zip((loss, dh, dw), want):
+        _close(a.detach().numpy(), b, CCE_TOL)
+
+
 def test_cut_cross_entropy_block_contract():
     h, w = torch.zeros(200, 8), torch.zeros(16, 8)
     labels = torch.zeros(200, dtype=torch.long)
